@@ -1,0 +1,26 @@
+"""emri_frequencydomainwaveforms_tpu_torch: the PyTorch + CUDA port.
+
+A second implementation of ``emri_frequencydomainwaveforms_tpu`` for NVIDIA
+Hopper GPUs. It mirrors the JAX package's module layout and function names
+(``models/waveform.py`` here is the counterpart of ``models/waveform.py``
+there) and is held against it by the ``tests/test_torch_*.py`` parity tests.
+
+This package imports ``torch``, ``numpy`` and ``ctypes`` only; it never
+imports ``jax`` or the JAX package, so it runs on a machine without JAX.
+
+Conventions:
+
+* the walker batch is an explicit leading dimension where the JAX package
+  used ``vmap``;
+* every tensor is created with an explicit ``dtype`` and ``device``: the
+  phase path is ``torch.float64`` (the JAX package turns on x64 globally),
+  the amplitude projection and the dense pass are ``torch.float32``;
+* the one hand-written kernel, the banded FD dense pass, lives in
+  ``csrc/fd_dense.cu`` and is wrapped by ``ops/fd_dense.py``; on CPU tensors
+  the wrapper runs its plain PyTorch version.
+
+The slice ported so far is the ``flat`` physics configuration (Peters-Mathews
+flux, plain multipole amplitudes) of the batched uniform-grid FD path.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,75 @@
+"""Carry pipeline state from numpy into the port's batched tensors.
+
+The parity tests drive each stage of the port from the JAX package's own
+inputs; the JAX side hands its NamedTuples over as numpy arrays (this module
+never imports JAX). A state without a walker axis (``t_knots`` 1-D, as the
+reference produces for one source) gets a leading batch axis of 1.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.amplitude import ModeTable
+from .models.modeselect import SelectedModes
+from .models.summation_fd import FDKernelInputs
+from .models.waveform import WaveformPrologue
+
+_INT_DTYPES = {"n_live": torch.int32, "idx": torch.int64}
+
+
+def _tensor(x, device, name: str = "", add_batch: bool = False) -> torch.Tensor:
+    a = np.array(x)  # a writable copy
+    if np.issubdtype(a.dtype, np.integer) or np.issubdtype(a.dtype, np.bool_):
+        dtype = _INT_DTYPES.get(name, torch.int32)
+    else:
+        dtype = torch.float32 if a.dtype == np.float32 else torch.float64
+    t = torch.as_tensor(a, device=device).to(dtype)
+    return t[None] if add_batch else t
+
+
+def mode_table_from_numpy(ls, ms, ns) -> ModeTable:
+    """A port ModeTable from (l, m, n) integer arrays."""
+    return ModeTable(np.asarray(ls), np.asarray(ms), np.asarray(ns))
+
+
+def prologue_from_numpy(fields, device="cpu") -> WaveformPrologue:
+    """WaveformPrologue from a namedtuple (or mapping) of numpy arrays with
+    the reference's field names; ``sel`` is a (idx, mask, power) triple and
+    ``y_plus`` / ``y_minus`` (re, im) pairs."""
+    f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
+    add = np.ndim(f["t_knots"]) == 1
+
+    def t(name, x=None):
+        return _tensor(f[name] if x is None else x, device, name, add)
+
+    sel = f["sel"]
+    return WaveformPrologue(
+        t_knots=t("t_knots"),
+        n_live=t("n_live"),
+        phi_phi=t("phi_phi"),
+        phi_r=t("phi_r"),
+        a_re=t("a_re"),
+        a_im=t("a_im"),
+        sel=SelectedModes(
+            idx=_tensor(sel[0], device, "idx", add),
+            mask=_tensor(sel[1], device, "mask", add),
+            power=_tensor(sel[2], device, "power", add),
+        ),
+        y_plus=(t("y_plus", f["y_plus"][0]), t("y_plus", f["y_plus"][1])),
+        y_minus=(t("y_minus", f["y_minus"][0]), t("y_minus", f["y_minus"][1])),
+        t_end=t("t_end"),
+        dist_factor=t("dist_factor"),
+    )
+
+
+def fd_inputs_from_numpy(fields, device="cpu") -> FDKernelInputs:
+    """FDKernelInputs from a namedtuple (or mapping) of numpy arrays with the
+    reference's field names."""
+    f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
+    add = np.ndim(f["t_knots"]) == 1
+    return FDKernelInputs(**{k: _tensor(f[k], device, k, add) for k in FDKernelInputs._fields})
+
+
+__all__ = ["mode_table_from_numpy", "prologue_from_numpy", "fd_inputs_from_numpy"]

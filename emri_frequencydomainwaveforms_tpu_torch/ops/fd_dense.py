@@ -1,0 +1,254 @@
+"""Banded FD dense pass: the hand-written CUDA kernel and its plain version.
+
+Counterpart of the Pallas kernels in
+``emri_frequencydomainwaveforms_tpu/ops/pallas/fd_dense.py``
+(`fd_dense_accumulate`, `fd_dense_accumulate_batched`), implementing the
+production superset the XLA dense pass computes
+(``models/summation_fd.py::_dense_slot_accumulate``): per slot, over a
+(g_band x r) window of uniform bins, evaluate the phase cubic plus the exact
+integer-cycle term, the signed-modulus and envelope-phase cubics, one sin/cos
+pair, mask to the slot's int32 band limits, weight by two complex weights and
+accumulate into four float32 spectra at the slot's window offset.
+
+The slots come in up to two groups (main slots, then the turnover / negative
+extra slots with their own narrower window), each a `DenseGroup`. Bin
+``g * r + b`` of a slot's window is output bin ``g0 * r + g * r + b``.
+
+`fd_dense_accumulate` dispatches on the device of its tensors: CPU tensors
+take the plain PyTorch version `fd_dense_accumulate_reference`; CUDA tensors
+launch ``csrc/fd_dense.cu`` (built with nvcc at first use) or raise. There
+is no fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+_TWO_PI = 2.0 * math.pi
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "fd_dense.cu")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+
+class DenseGroup(NamedTuple):
+    """One group of slots of the dense pass (all tensors contiguous).
+
+    pc: (B, S, G, 4) float32 phase cubic coefficients (2pi-cycle residuals).
+    nc: (B, S, G, 3) int32 2pi-cycle counts of p1..p3 (zeros when r is not a
+        power of two).
+    ec: (B, S, G, 8) float32 signed-modulus cubic 0:4, envelope-phase cubic 4:8.
+    i_lo, i_hi: (B, S) int32 first / last kept window-local bin; i_lo is
+        INT32_MAX for a dead slot.
+    w: (B, S, 4) float32 weights (w1r, w1i, w2r, w2i).
+    g0: (B, S) int32 window start runs.
+    """
+
+    pc: torch.Tensor
+    nc: torch.Tensor
+    ec: torch.Tensor
+    i_lo: torch.Tensor
+    i_hi: torch.Tensor
+    w: torch.Tensor
+    g0: torch.Tensor
+
+
+def _cycle_scale(r: int) -> float:
+    return float(np.float32(_TWO_PI / (r * r * r)))
+
+
+def _slot_contribution(grp: DenseGroup, s: int, r: int):
+    """(B, 4, G * r) weighted, band-masked contribution of slot ``s``."""
+    f32 = torch.float32
+    dev = grp.pc.device
+    n_g = grp.pc.shape[2]
+    pc = grp.pc[:, s]  # (B, G, 4)
+    nc = grp.nc[:, s]
+    ec = grp.ec[:, s]
+    xi = (torch.arange(r, dtype=f32, device=dev) * float(np.float32(1.0 / r)))[None, None, :]
+    psi = pc[..., 0:1] + xi * (pc[..., 1:2] + xi * (pc[..., 2:3] + xi * pc[..., 3:4]))
+    # exact integer-cycle phase, int32 Horner chain reduced mod r^3
+    mask = r * r * r - 1
+    b = torch.arange(r, dtype=torch.int32, device=dev)[None, None, :]
+    n1, n2, n3 = nc[..., 0:1], nc[..., 1:2], nc[..., 2:3]
+    u = torch.bitwise_and(b * n3, mask)
+    u = torch.bitwise_and(r * n2 + u, mask)
+    u = torch.bitwise_and(b * u, mask)
+    u = torch.bitwise_and(r * r * n1 + u, mask)
+    u = torch.bitwise_and(b * u, mask)
+    psi = psi + u.to(f32) * _cycle_scale(r)
+    amp = ec[..., 0:1] + xi * (ec[..., 1:2] + xi * (ec[..., 2:3] + xi * ec[..., 3:4]))
+    psi = psi + ec[..., 4:5] + xi * (ec[..., 5:6] + xi * (ec[..., 6:7] + xi * ec[..., 7:8]))
+    c_re = amp * torch.cos(psi)
+    c_im = amp * torch.sin(psi)
+    idx_local = (
+        torch.arange(n_g, dtype=torch.int32, device=dev)[:, None] * r
+        + torch.arange(r, dtype=torch.int32, device=dev)[None, :]
+    )[None]
+    keep = (idx_local >= grp.i_lo[:, s, None, None]) & (idx_local <= grp.i_hi[:, s, None, None])
+    # a select, not a multiply: masked lanes may hold NaN
+    zero = torch.zeros((), dtype=f32, device=dev)
+    c_re = torch.where(keep, c_re, zero).reshape(c_re.shape[0], -1)
+    c_im = torch.where(keep, c_im, zero).reshape(c_im.shape[0], -1)
+    w = grp.w[:, s, :, None]
+    return torch.stack(
+        [
+            c_re * w[:, 0] - c_im * w[:, 1],
+            c_re * w[:, 1] + c_im * w[:, 0],
+            c_re * w[:, 2] - c_im * w[:, 3],
+            c_re * w[:, 3] + c_im * w[:, 2],
+        ],
+        dim=1,
+    )
+
+
+def fd_dense_accumulate_reference(
+    groups: Sequence[DenseGroup], *, r: int, nf: int
+) -> torch.Tensor:
+    """Plain PyTorch dense pass -> (B, 4, nf) float32.
+
+    A per-slot windowed add in slot order (group by group), the same float
+    operations in the same order as the reference's read-modify-write chain.
+    Window bins past ``nf`` land in a discarded spill bin.
+    """
+    pc0 = groups[0].pc
+    n_b, dev = pc0.shape[0], pc0.device
+    out = torch.zeros((n_b, 4, nf + 1), dtype=torch.float32, device=dev)
+    for grp in groups:
+        n_g = grp.pc.shape[2]
+        local = torch.arange(n_g * r, device=dev)
+        for s in range(grp.pc.shape[1]):
+            pos = grp.g0[:, s, None].long() * r + local[None, :]  # (B, G r)
+            pos = torch.where(pos < nf, pos, nf)
+            out.scatter_add_(2, pos[:, None, :].expand(n_b, 4, -1), _slot_contribution(grp, s, r))
+    return out[..., :nf]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the fd_dense CUDA kernel cannot be built")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def build_kernel() -> tuple[str, str]:
+    """Compile ``csrc/fd_dense.cu`` for sm_90a (once per source hash).
+
+    Returns (path of the shared library, compiler log). The library goes to
+    the package's ``_build/`` directory, keyed by a hash of the source.
+    """
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(_BUILD_DIR, f"fd_dense-{digest}.so")
+    if os.path.exists(lib_path):
+        return lib_path, "cached"
+    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp_path, _SOURCE,
+    ]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp_path, lib_path)
+    finally:
+        if os.path.exists(tmp_path):
+            os.remove(tmp_path)
+    return lib_path, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_kernel()[0])
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    group = [p, p, p, p, p, p, p, i, i]
+    lib.fd_dense_launch.argtypes = group + group + [p, i, i, i, f, f, p]
+    lib.fd_dense_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check_group(grp: DenseGroup, n_b: int, dev: torch.device) -> None:
+    n_s, n_g = grp.pc.shape[1], grp.pc.shape[2]
+    shapes = {
+        "pc": ((n_b, n_s, n_g, 4), torch.float32),
+        "nc": ((n_b, n_s, n_g, 3), torch.int32),
+        "ec": ((n_b, n_s, n_g, 8), torch.float32),
+        "i_lo": ((n_b, n_s), torch.int32),
+        "i_hi": ((n_b, n_s), torch.int32),
+        "w": ((n_b, n_s, 4), torch.float32),
+        "g0": ((n_b, n_s), torch.int32),
+    }
+    for name, (shape, dtype) in shapes.items():
+        t = getattr(grp, name)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be a contiguous tensor on {dev}")
+
+
+def fd_dense_accumulate(groups: Sequence[DenseGroup], *, r: int, nf: int) -> torch.Tensor:
+    """Dense pass over one or two slot groups -> (B, 4, nf) float32.
+
+    CPU tensors run `fd_dense_accumulate_reference`. CUDA tensors launch the
+    kernel on the current stream (no synchronisation; the output is the only
+    allocation) and count the launch in ``fd_dense_accumulate.launches``.
+    """
+    dev = groups[0].pc.device
+    if dev.type == "cpu":
+        return fd_dense_accumulate_reference(groups, r=r, nf=nf)
+    if dev.type != "cuda":
+        raise ValueError(f"fd_dense_accumulate: unsupported device {dev}")
+    if not 1 <= len(groups) <= 2:
+        raise ValueError("fd_dense_accumulate takes one or two slot groups")
+    if not 1 <= r <= 128:
+        # the int32 cycle chain stays below 2^30 only for r <= 128
+        raise ValueError(f"bins per run r={r} outside [1, 128]")
+    n_b = groups[0].pc.shape[0]
+    if not 1 <= n_b <= 65535 or nf < 1:
+        raise ValueError(f"batch {n_b} outside [1, 65535] or empty grid nf={nf}")
+    for grp in groups:
+        _check_group(grp, n_b, dev)
+    lib = _library()
+    out = torch.empty((n_b, 4, nf), dtype=torch.float32, device=dev)
+
+    def args(grp: DenseGroup | None):
+        if grp is None:
+            return [None] * 7 + [0, 0]
+        ptrs = [t.data_ptr() for t in grp]
+        return ptrs + [grp.pc.shape[1], grp.pc.shape[2]]
+
+    extra = groups[1] if len(groups) > 1 else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.fd_dense_launch(
+            *args(groups[0]), *args(extra), out.data_ptr(), n_b, nf, r,
+            float(np.float32(1.0 / r)), _cycle_scale(r), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fd_dense kernel launch failed: cudaError {err}")
+    fd_dense_accumulate.launches += 1
+    return out
+
+
+fd_dense_accumulate.launches = 0
+
+__all__ = [
+    "DenseGroup",
+    "fd_dense_accumulate",
+    "fd_dense_accumulate_reference",
+    "build_kernel",
+]

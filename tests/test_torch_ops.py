@@ -1,0 +1,145 @@
+"""Parity of the PyTorch port's numerics substrate with the JAX package.
+
+Same inputs (numpy, from a seed) through both implementations on the CPU:
+tridiagonal solves, cubic splines, the float32 K_{1/3} SPA factor, the
+spin-weighted harmonics and the physical constants. float64 stages agree to
+~1e-12 relative (different reduction / libm rounding only); the float32
+Bessel factor to ~1e-6.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from emri_frequencydomainwaveforms_tpu.ops import bessel as j_bessel
+from emri_frequencydomainwaveforms_tpu.ops import cubic_spline as j_spline
+from emri_frequencydomainwaveforms_tpu.ops import tridiag as j_tridiag
+from emri_frequencydomainwaveforms_tpu.utils import constants as j_const
+from emri_frequencydomainwaveforms_tpu.utils import ylm as j_ylm
+from emri_frequencydomainwaveforms_tpu_torch.ops import bessel as t_bessel
+from emri_frequencydomainwaveforms_tpu_torch.ops import cubic_spline as t_spline
+from emri_frequencydomainwaveforms_tpu_torch.ops import tridiag as t_tridiag
+from emri_frequencydomainwaveforms_tpu_torch.utils import constants as t_const
+from emri_frequencydomainwaveforms_tpu_torch.utils import ylm as t_ylm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.max(np.abs(a - b)) / np.max(np.abs(a))
+
+
+def test_constants_equal_reference():
+    for name in j_const.__all__:
+        assert getattr(t_const, name) == getattr(j_const, name), name
+
+
+def test_thomas_solve_batched():
+    rng = np.random.default_rng(11)
+    n, batch = 29, (3, 4)
+    dl = rng.standard_normal(batch + (n,))
+    d = rng.standard_normal(batch + (n,)) + 6.0
+    du = rng.standard_normal(batch + (n,))
+    b = rng.standard_normal(batch + (n,))
+    ref = j_tridiag.thomas_solve(*(jnp.asarray(x) for x in (dl, d, du, b)))
+    got = t_tridiag.thomas_solve(*(torch.from_numpy(x) for x in (dl, d, du, b)))
+    assert _rel(ref, got) < 1e-12
+
+
+@pytest.mark.parametrize("bc", ["natural", "not-a-knot"])
+def test_spline_fit_and_eval(bc):
+    rng = np.random.default_rng(12)
+    # jittered knots, as adaptive trajectory knots are (no near-coincident
+    # pairs, which would only measure the conditioning of the solve)
+    x = np.linspace(0.0, 10.0, 41) + rng.uniform(-0.05, 0.05, 41)
+    y = np.stack([np.sin(x) + 0.1 * x**2, np.cos(1.3 * x) * np.exp(-0.05 * x)])
+    ref = j_spline.fit_cubic_spline(jnp.asarray(x), jnp.asarray(y), bc=bc)
+    got = t_spline.fit_cubic_spline(torch.from_numpy(x), torch.from_numpy(y), bc=bc)
+    assert _rel(ref.c, got.c) < 1e-12
+    xq = np.linspace(x[0] - 0.3, x[-1] + 0.3, 257)  # includes extrapolation
+    for deriv in range(4):
+        a = j_spline.spline_eval(ref, jnp.asarray(xq), deriv=deriv)
+        b = t_spline.spline_eval(got, torch.from_numpy(xq), deriv=deriv)
+        assert _rel(a, b) < 1e-12, deriv
+
+
+def test_spline_batched_knots():
+    # one knot vector per walker: (B, n) knots, (B, M, n) values
+    rng = np.random.default_rng(13)
+    n_b, m, n = 3, 5, 24
+    x = np.linspace(0.0, 3.0, n) + rng.uniform(-0.02, 0.02, (n_b, n))
+    y = rng.standard_normal((n_b, m, n))
+    got = t_spline.fit_cubic_spline(
+        torch.from_numpy(x)[:, None, :], torch.from_numpy(y), bc="not-a-knot"
+    )
+    xq = np.sort(rng.uniform(0.0, 3.0, (n_b, 17)), axis=-1)
+    vals = t_spline.spline_eval(
+        t_spline.CubicSplineCoeffs(torch.from_numpy(x), got.c), torch.from_numpy(xq), deriv=1
+    )
+    for i in range(n_b):
+        ref = j_spline.fit_cubic_spline(jnp.asarray(x[i]), jnp.asarray(y[i]), bc="not-a-knot")
+        assert _rel(ref.c, got.c[i]) < 1e-12
+        assert _rel(j_spline.spline_eval(ref, jnp.asarray(xq[i]), deriv=1), vals[i]) < 1e-12
+
+
+def test_kve_one_third_imag_float32():
+    rng = np.random.default_rng(14)
+    # both series branches, the switch point and the fold interior
+    w = np.concatenate([
+        -np.logspace(-30, 12, 400), -rng.uniform(7.5, 8.5, 64), rng.uniform(-50, 50, 64)
+    ]).astype(np.float32)
+    jr, ji = j_bessel.kve_one_third_imag(jnp.asarray(w))
+    tr, ti = t_bessel.kve_one_third_imag(torch.from_numpy(w))
+    assert tr.dtype == torch.float32
+    mag = np.hypot(np.asarray(jr), np.asarray(ji))
+    err = np.hypot(np.asarray(jr) - tr.numpy(), np.asarray(ji) - ti.numpy())
+    assert np.max(err / mag) < 1e-6
+
+
+def test_spin_weighted_ylm():
+    rng = np.random.default_rng(15)
+    ls = np.array([2, 2, 2, 3, 3, 4, 5, 6, 6])
+    ms = np.array([2, 0, -1, 3, -2, 4, 1, 6, -5])
+    theta = rng.uniform(0.0, np.pi, 6)
+    phi = rng.uniform(0.0, 2 * np.pi, 6)
+    jr, ji = j_ylm.spin_weighted_ylm(ls, ms, jnp.asarray(theta), jnp.asarray(phi))
+    tr, ti = t_ylm.spin_weighted_ylm(ls, ms, torch.from_numpy(theta), torch.from_numpy(phi))
+    assert tr.shape == (6, len(ls))
+    scale = np.max(np.hypot(np.asarray(jr), np.asarray(ji)))
+    assert np.max(np.abs(np.asarray(jr) - tr.numpy())) / scale < 1e-12
+    assert np.max(np.abs(np.asarray(ji) - ti.numpy())) / scale < 1e-12
+
+
+def test_port_imports_no_jax():
+    # modules the import adds must include neither JAX nor the JAX package
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import emri_frequencydomainwaveforms_tpu_torch\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.convert\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.waveform\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.ops.fd_dense\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
+        " 'emri_frequencydomainwaveforms_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'jax' not in sys.modules or 'jax' in before\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=str(Path(__file__).resolve().parents[1]),
+    )
+    assert res.returncode == 0, res.stderr
