@@ -3,11 +3,16 @@
 
 Builds the hand-written CUDA kernel from the sources in this checkout,
 checks it against its plain PyTorch version on the card at the main path's
-shapes, then drives the port's main path once at full width: a 128-walker
-batch of all-mode FD waveforms of a 1-yr source at dt = 10 s (1,577,907
-positive bins), eps = 1e-2 selection frozen to 16 slots, 256-run windows of
-64 bins and 2 turnover slots, with the flat physics (Peters-Mathews flux,
-plain multipole amplitudes). Every phase raises on failure.
+shapes and on small adversarial layouts, then drives the port's main path
+once at full width: a 128-walker batch of all-mode FD waveforms of a 1-yr
+source at dt = 10 s (1,577,907 positive bins), eps = 1e-2 selection frozen
+to 16 slots, 256-run windows of 64 bins and 2 turnover slots, with the flat
+physics (Peters-Mathews flux, plain multipole amplitudes); and the same
+module once at B = 1 (the unbatched TPU kernel's path). Then it times the
+kernel on the dense-pass tables those runs produced, beside its plain
+version, its byte bound, a zero fill of the same output (the practical
+write floor) and the kernel with every slot dead. Every phase raises on
+failure.
 
     python3 chip_smoke.py
 
@@ -37,7 +42,14 @@ BINS_PER_RUN = 64
 TURNOVER_SLOTS = 2
 EXTRA_BAND_RUNS = 64
 KERNEL_SOURCE = "emri_frequencydomainwaveforms_tpu_torch/csrc/fd_dense.cu"
-KERNEL_REPLACES = "emri_frequencydomainwaveforms_tpu/ops/pallas/fd_dense.py:203"
+PALLAS = "emri_frequencydomainwaveforms_tpu/ops/pallas/fd_dense.py"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
+F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+# float32 operations per kept (bin, slot) pair: 3 cubics + the cycle term +
+# a sin/cos pair + 4 complex-weight multiply-adds (an FMA counts 2)
+OPS_PER_PAIR = 64
+CELL_BYTES = 4 * 4 + 3 * 4 + 8 * 4  # one (slot, run) cell of pc, nc and ec
+SLOT_BYTES = 3 * 4 + 4 * 4  # one slot's i_lo, i_hi, g0 and w
 
 
 def check(ok: bool, what: str) -> None:
@@ -66,30 +78,59 @@ def time_ms(fn, reps: int, torch) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def synthetic_groups(torch, dense, rng, dev):
-    """Dense-pass tables at the main path's shapes (16 main slots of 256
-    runs, 2 extra slots of 64 runs, r = 64): overlapping windows, a dead
-    slot, band edges inside runs and NaN coefficients in masked lanes."""
-    nf, r = 1_577_907, BINS_PER_RUN
-    g_total = -(-nf // r)
-    groups = []
-    for n_s, g_band in ((K_MAX, BAND_RUNS), (TURNOVER_SLOTS, EXTRA_BAND_RUNS)):
-        shape = (BATCH, n_s, g_band)
-        pc = rng.uniform(-3.0, 3.0, shape + (4,)).astype(np.float32)
-        nc = rng.integers(-4000, 4000, shape + (3,)).astype(np.int32)
-        ec = rng.uniform(-1.0, 1.0, shape + (8,)).astype(np.float32)
-        g0 = rng.integers(0, g_total, (BATCH, n_s)).astype(np.int32)
-        g0[:, 1] = g0[:, 0] + g_band // 3  # overlapping windows
-        i_lo = rng.integers(r, g_band * r // 4, (BATCH, n_s)).astype(np.int32) + 7
-        i_hi = (i_lo + rng.integers(r, g_band * r, (BATCH, n_s))).astype(np.int32)
-        i_lo[:, -1] = 2**31 - 1  # dead slot
-        pc[:, :, 0, 1] = np.nan  # run 0 lies below every i_lo: masked lanes
-        ec[:, :, 0, 4] = np.nan
-        w = rng.standard_normal((BATCH, n_s, 4)).astype(np.float32)
-        groups.append(dense.DenseGroup(
-            *(torch.from_numpy(x).to(dev) for x in (pc, nc, ec, i_lo, i_hi, w, g0))
-        ))
-    return groups, nf, r
+def device_ms(fn, reps: int, torch):
+    """Device time per call of ``fn``: the CUDA kernels' self time in a
+    ``torch.profiler`` trace of ``reps`` calls (None if the trace shows no
+    device time). Unlike `time_ms` it leaves out the host's issue time."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def on_device(dense, groups, dev):
+    return [dense.DenseGroup(*(x.to(dev) for x in g)) for g in groups]
+
+
+def compare(torch, dense, cases, groups, r, nf, what):
+    """Kernel vs plain version on the same tables: max |kernel - plain| and
+    the plain output's max |.|; raises past 1e-5 max/scale, on a non-finite
+    kernel output, or on a nonzero bin outside every kept band."""
+    out_k = dense.fd_dense_accumulate(groups, r=r, nf=nf)
+    out_p = dense.fd_dense_accumulate_reference(groups, r=r, nf=nf)
+    torch.cuda.synchronize()
+    check(out_k.shape == out_p.shape, f"{what}: kernel output shape {tuple(out_k.shape)}")
+    check(bool(torch.isfinite(out_k).all()), f"{what}: kernel output finite")
+    outside = ~cases.kept_mask(groups, r, nf)[:, None, :].expand_as(out_k)
+    check(not bool(out_k[outside].any()), f"{what}: exactly 0 outside every kept band")
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    check(err <= 1e-5 * scale, f"{what}: kernel vs plain {err:.3e} <= 1e-5 x {scale:.3e}")
+    return err, scale
+
+
+def bound(cases, groups, r, nf):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    this call, at the HBM peak for the bytes it must move or at the float32
+    peak for the kept pairs' operations. The bytes: each coefficient cell
+    that a kept bin inside the grid lies in, and each slot's scalars, read
+    once; each output byte written once."""
+    n_b = groups[0].pc.shape[0]
+    n_bytes = (cases.kept_runs(groups, r, nf) * CELL_BYTES
+               + sum(g.pc.shape[1] for g in groups) * n_b * SLOT_BYTES + n_b * 4 * nf * 4)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = cases.kept_pairs(groups, r, nf) * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 @contextlib.contextmanager
@@ -101,6 +142,14 @@ def dense_function(summation_fd, fn):
         yield
     finally:
         summation_fd.fd_dense_accumulate = saved
+
+
+def capturing(fn, seen):
+    """``fn`` that also keeps each call's (groups, r, nf) in ``seen``."""
+    def run(groups, *, r, nf):
+        seen.append((groups, r, nf))
+        return fn(groups, r=r, nf=nf)
+    return run
 
 
 def main() -> None:
@@ -125,6 +174,7 @@ def main() -> None:
         waveform_prologue,
     )
     from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
+    from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
 
     dev = torch.device("cuda", 0)
     # float32 matmuls (the amplitude projection) in full float32
@@ -144,25 +194,38 @@ def main() -> None:
           flush=True)
 
     # ---- phase 3: kernel vs plain version on the card ----
-    rng = np.random.default_rng(3)
-    groups, nf_syn, r_syn = synthetic_groups(torch, fd_dense, rng, dev)
-    out_k = fd_dense.fd_dense_accumulate(groups, r=r_syn, nf=nf_syn)
-    out_p = fd_dense.fd_dense_accumulate_reference(groups, r=r_syn, nf=nf_syn)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(out_k).all()), "kernel output finite")
-    max_abs_err = float((out_k - out_p).abs().max())
-    scale = float(out_p.abs().max())
+    # synthetic tables at the main path's shapes (16 main slots of 256 runs,
+    # 2 extra slots of 64 runs, r = 64, B = 128)
+    nf_syn, r_syn = 1_577_907, BINS_PER_RUN
+    groups = on_device(fd_dense, cases.random_groups(
+        np.random.default_rng(3), BATCH, [(K_MAX, BAND_RUNS), (TURNOVER_SLOTS, EXTRA_BAND_RUNS)],
+        r_syn, nf_syn), dev)
+    err_syn, scale = compare(torch, fd_dense, cases, groups, r_syn, nf_syn, "synthetic B=128")
     check(scale > 0, "synthetic tables produce output")
-    check(max_abs_err / scale <= 1e-5, f"kernel vs plain {max_abs_err / scale:.3e} <= 1e-5")
-    del out_k, out_p
-    kernel_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r_syn, nf=nf_syn), 20, torch)
-    plain_ms = time_ms(lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r_syn, nf=nf_syn), 3, torch)
-    del groups
+    syn_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r_syn, nf=nf_syn), 20, torch)
+    syn_plain_ms = time_ms(
+        lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r_syn, nf=nf_syn), 3, torch)
+    # every slot dead: the kernel's skeleton (slot lists + zero stores)
+    dead = [g._replace(i_lo=torch.full_like(g.i_lo, cases.DEAD)) for g in groups]
+    check(not bool(fd_dense.fd_dense_accumulate(dead, r=r_syn, nf=nf_syn).any()),
+          "all slots dead: exactly 0")
+    skeleton_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(dead, r=r_syn, nf=nf_syn), 20, torch)
+    del groups, dead
     torch.cuda.empty_cache()
-    print(f"[kernel] fd_dense_accumulate B={BATCH} slots={K_MAX}x{BAND_RUNS}+{TURNOVER_SLOTS}x"
-          f"{EXTRA_BAND_RUNS} runs r={r_syn} nf={nf_syn}: max|kernel-plain|={max_abs_err:.3e} "
-          f"(rel {max_abs_err / scale:.3e} <= 1e-5); kernel {kernel_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms on {card}", flush=True)
+    print(f"[kernel] synthetic B={BATCH} slots={K_MAX}x{BAND_RUNS}+{TURNOVER_SLOTS}x"
+          f"{EXTRA_BAND_RUNS} runs r={r_syn} nf={nf_syn}: max|kernel-plain|={err_syn:.3e} "
+          f"(rel {err_syn / scale:.3e} <= 1e-5); kernel {syn_ms:.3f} ms, plain {syn_plain_ms:.3f} ms, "
+          f"all slots dead (skeleton) {skeleton_ms:.3f} ms on {card}", flush=True)
+    worst = 0.0
+    for case in cases.adversarial_cases(np.random.default_rng(45)):
+        err, scale = compare(torch, fd_dense, cases, on_device(fd_dense, case.groups, dev),
+                             case.r, case.nf, case.name)
+        check((case.name == "all_dead") == (scale == 0), f"{case.name}: output scale {scale}")
+        worst = max(worst, err / scale if scale else err)
+    print(f"[kernel] adversarial layouts (r in 1,3,8,64,128; ragged nf; windows across and "
+          f"past nf; 2-bin bands; NaN in masked lanes; 1 and 2 groups; all dead): worst "
+          f"max|kernel-plain|/scale {worst:.3e} <= 1e-5, exactly 0 outside every kept band",
+          flush=True)
 
     # ---- phase 4: the slice at full width ----
     table = default_mode_table(30)
@@ -171,22 +234,25 @@ def main() -> None:
     nf = len(f_np)
     f0u, dfu = float(f_np[0]), float(f_np[1] - f_np[0])
     src = (1e6, 10.0, 12.0, 0.35, 0.7, 0.5, 1.0, 0.0, 0.0)
+    # no device named: the entry points run on the current CUDA device
     pro_sel = waveform_prologue(
-        *src, t_years=T_YEARS, table=table, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS, device=dev
+        *src, t_years=T_YEARS, table=table, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS
     )
+    check(pro_sel.t_knots.device == dev, f"prologue on {pro_sel.t_knots.device} by default")
     forced_idx = pro_sel.sel.idx[0].cpu().numpy()
     table_k = table.take(forced_idx)
     idx_k = np.arange(len(forced_idx))
     pro0 = waveform_prologue(
         *src, t_years=T_YEARS, table=table_k, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS,
-        forced_idx=idx_k, device=dev,
+        forced_idx=idx_k,
     )
     offsets = band_offsets_for(pro0, table_k, f0u, dfu, BINS_PER_RUN, BAND_RUNS)
     gen = FrozenFDWaveform(
         table_k, offsets, f0=f0u, df=dfu, nf=nf, t_years=T_YEARS, mass_1=1e6, mass_2=10.0,
         max_steps=MAX_STEPS, bins_per_run=BINS_PER_RUN, band_runs=BAND_RUNS,
         turnover_slots=TURNOVER_SLOTS, extra_band_runs=EXTRA_BAND_RUNS,
-    ).to(dev)
+    )
+    check(gen.lmn.device == dev, f"FrozenFDWaveform buffers on {gen.lmn.device} by default")
 
     rng = np.random.default_rng(7)  # the reference benchmark's walker jitter
     p0s = 12.0 + 0.12 * (rng.random(BATCH) - 0.5)
@@ -214,18 +280,29 @@ def main() -> None:
     max_knots = int(traj.n.max())
     check(max_knots <= MAX_STEPS - 4, f"max_knots {max_knots} <= {MAX_STEPS - 4}")
 
+    # the B = 1 path (the unbatched TPU kernel's): lane 0 alone, through the kernel
+    lane0 = [x[:1] for x in batch]
+    fd_dense.fd_dense_accumulate.launches = 0
+    single = gen(*lane0)
+    torch.cuda.synchronize()
+    launches_1 = fd_dense.fd_dense_accumulate.launches
+    check(launches_1 > 0, "the B = 1 path launched the fd_dense kernel")
     # lane 0 against its twin through the plain dense pass, on the card
-    with dense_function(summation_fd, fd_dense.fd_dense_accumulate_reference):
-        twin = gen(*(x[:1] for x in batch))
-    rel_l2 = max(
-        float(torch.linalg.vector_norm(o[0].double() - t[0].double())
-              / torch.linalg.vector_norm(t[0].double()))
-        for o, t in zip(out, twin)
+    tables_1 = []
+    with dense_function(summation_fd,
+                        capturing(fd_dense.fd_dense_accumulate_reference, tables_1)):
+        twin = gen(*lane0)
+    rel_l2, rel_1 = (
+        max(float(torch.linalg.vector_norm(o[0].double() - t[0].double())
+                  / torch.linalg.vector_norm(t[0].double()))
+            for o, t in zip(res, twin))
+        for res in (out, single)
     )
     check(rel_l2 <= 1e-5, f"lane 0 vs plain-dense twin rel L2 {rel_l2:.3e} <= 1e-5")
+    check(rel_1 <= 1e-5, f"B = 1 run vs plain-dense twin rel L2 {rel_1:.3e} <= 1e-5")
     # lane 0 against the same module on the CPU (plain paths throughout)
     cpu = gen.to("cpu")
-    host = cpu(*(x[:1].cpu() for x in batch))
+    host = cpu(*(x.cpu() for x in lane0))
     gen.to(dev)
     rel_cpu = max(
         float(torch.linalg.vector_norm(o[0].cpu().double() - h[0].double())
@@ -235,11 +312,12 @@ def main() -> None:
     print(f"[slice] B={BATCH} nf={nf} slots={len(forced_idx)}+{TURNOVER_SLOTS}: finite, "
           f"fd_dense launches={launches}, min nonzero bins/lane={nonzero}, peak |h+~|={peak:.4e}, "
           f"max_knots={max_knots}, lane0 vs plain-dense twin rel L2={rel_l2:.3e}, "
-          f"lane0 vs CPU port rel L2={rel_cpu:.3e}", flush=True)
+          f"lane0 vs CPU port rel L2={rel_cpu:.3e}; B=1 run: fd_dense launches={launches_1}, "
+          f"vs plain-dense twin rel L2={rel_1:.3e}", flush=True)
     check(rel_cpu <= 1e-4, f"lane 0 GPU vs CPU rel L2 {rel_cpu:.3e} <= 1e-4")
 
     # ---- timing (informational) ----
-    del out, twin, host, hp_abs
+    del out, twin, host, hp_abs, single
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
@@ -262,6 +340,7 @@ def main() -> None:
         max_steps=MAX_STEPS, forced_idx=idx_k, family_c=gen.family_c,
     )
     dense_s = []
+    tables = []
 
     def timed_dense(groups_, **kw):
         torch.cuda.synchronize()
@@ -273,7 +352,7 @@ def main() -> None:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with dense_function(summation_fd, timed_dense):
+    with dense_function(summation_fd, capturing(timed_dense, tables)):
         fd_waveform_core(
             pro, table_k, nf, channels=True, uniform=(f0u, dfu), band_runs=BAND_RUNS,
             band_offsets=gen.band_offsets, bins_per_run=BINS_PER_RUN,
@@ -287,17 +366,48 @@ def main() -> None:
           f"{BATCH}-walker batch, host clock, synchronized); stages (ms): "
           + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stage.items())
           + f"; on {card}", flush=True)
+    del pro, traj
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "fd_dense_accumulate",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # ---- phase 5: the kernel on the main path's own tables ----
+    records = []
+    for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
+        (tables[0], "fd_dense_accumulate_batched", 203, launches, 20),
+        (tables_1[0], "fd_dense_accumulate", 99, launches_1, 200),
+    ):
+        n_b = groups[0].pc.shape[0]
+        err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")
+        ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf_t), reps, torch)
+        plain_ms = time_ms(
+            lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r, nf=nf_t), 3, torch)
+        buf = fd_dense.output_buffer(n_b, nf_t, dev)[0]
+        zero_fill_ms = time_ms(buf.zero_, reps, torch)
+        kernel_dev_ms = device_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf_t), reps,
+                                  torch)
+        zero_dev_ms = device_ms(buf.zero_, reps, torch)
+        bound_ms, bound_by = bound(cases, groups, r, nf_t)
+        print(f"[kernel] {name} on the main path's tables, B={n_b} slots="
+              f"{'+'.join(str(g.pc.shape[1]) for g in groups)} r={r} nf={nf_t} "
+              f"({cases.kept_pairs(groups, r, nf_t)} kept bin-slot pairs in "
+              f"{cases.kept_runs(groups, r, nf_t)} run cells): max|kernel-plain|="
+              f"{err:.3e} (rel {err / scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"zero fill of the same (B, 4, {buf.shape[2]}) output {zero_fill_ms:.4f} ms "
+              f"(practical write floor), bound {bound_ms:.4f} ms by {bound_by} -> "
+              f"{100 * bound_ms / ms:.1f} % of bound; device time per call (profiler): kernel "
+              f"{fmt(kernel_dev_ms)}, zero fill {fmt(zero_dev_ms)}; on {card}", flush=True)
+        records.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": f"{PALLAS}:{pallas_line}", "launches": n_launched,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "zero_fill_ms": zero_fill_ms,
+            "device_ms": kernel_dev_ms,
+        })
+        if n_b == BATCH:
+            records[-1]["skeleton_ms"] = skeleton_ms
+        del buf
+        torch.cuda.empty_cache()
+
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

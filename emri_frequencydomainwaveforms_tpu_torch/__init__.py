@@ -15,6 +15,10 @@ Conventions:
 * every tensor is created with an explicit ``dtype`` and ``device``: the
   phase path is ``torch.float64`` (the JAX package turns on x64 globally),
   the amplitude projection and the dense pass are ``torch.float32``;
+* an entry point runs on the ``device`` it is given, else on its tensor
+  arguments' device, else on the current CUDA device
+  (``utils/device.py::resolve_device``); without a CUDA device it raises
+  unless ``device="cpu"`` (or CPU tensors) says to run on the CPU;
 * the one hand-written kernel, the banded FD dense pass, lives in
   ``csrc/fd_dense.cu`` and is wrapped by ``ops/fd_dense.py``; on CPU tensors
   the wrapper runs its plain PyTorch version.

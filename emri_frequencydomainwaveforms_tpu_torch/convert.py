@@ -15,6 +15,7 @@ from .models.amplitude import ModeTable
 from .models.modeselect import SelectedModes
 from .models.summation_fd import FDKernelInputs
 from .models.waveform import WaveformPrologue
+from .utils.device import resolve_device
 
 _INT_DTYPES = {"n_live": torch.int32, "idx": torch.int64}
 
@@ -34,10 +35,12 @@ def mode_table_from_numpy(ls, ms, ns) -> ModeTable:
     return ModeTable(np.asarray(ls), np.asarray(ms), np.asarray(ns))
 
 
-def prologue_from_numpy(fields, device="cpu") -> WaveformPrologue:
+def prologue_from_numpy(fields, device=None) -> WaveformPrologue:
     """WaveformPrologue from a namedtuple (or mapping) of numpy arrays with
     the reference's field names; ``sel`` is a (idx, mask, power) triple and
-    ``y_plus`` / ``y_minus`` (re, im) pairs."""
+    ``y_plus`` / ``y_minus`` (re, im) pairs. ``device`` defaults to the
+    current CUDA device (raises without one: pass ``device="cpu"``)."""
+    device = resolve_device(device)
     f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
     add = np.ndim(f["t_knots"]) == 1
 
@@ -64,9 +67,10 @@ def prologue_from_numpy(fields, device="cpu") -> WaveformPrologue:
     )
 
 
-def fd_inputs_from_numpy(fields, device="cpu") -> FDKernelInputs:
+def fd_inputs_from_numpy(fields, device=None) -> FDKernelInputs:
     """FDKernelInputs from a namedtuple (or mapping) of numpy arrays with the
-    reference's field names."""
+    reference's field names; ``device`` as for `prologue_from_numpy`."""
+    device = resolve_device(device)
     f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
     add = np.ndim(f["t_knots"]) == 1
     return FDKernelInputs(**{k: _tensor(f[k], device, k, add) for k in FDKernelInputs._fields})

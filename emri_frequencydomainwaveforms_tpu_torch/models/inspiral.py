@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import MTSUN_SI, YRSID_SI
+from ..utils.device import resolve_device
 from .flux import inspiral_rhs, stop_condition
 from .geodesic import separatrix
 from .integrate import InspiralKnots, integrate_inspiral
@@ -36,9 +37,9 @@ class Trajectory(NamedTuple):
 
 
 def _batch_f64(*xs, device=None):
-    """Broadcast scalars / tensors to float64 (B,) tensors on one device."""
-    if device is None:
-        device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    """Broadcast scalars / tensors to float64 (B,) tensors on one device
+    (`resolve_device`: ``device``, else the first tensor's, else CUDA)."""
+    device = resolve_device(device, *xs)
     ts = [torch.as_tensor(x, dtype=torch.float64, device=device).reshape(-1) for x in xs]
     return list(torch.broadcast_tensors(*ts))
 
@@ -65,6 +66,8 @@ def schwarz_ecc_flux_inspiral(
       p0, e0: initial semi-latus rectum / eccentricity, scalars or (B,).
       t_years: observation horizon [sidereal years].
       flux: only "pm" (Peters-Mathews) is ported.
+      device: where to run; default the first tensor argument's device, else
+        the current CUDA device (raises without one: pass device="cpu").
 
     Returns:
       Trajectory with t in seconds; each lane stops at min(T, separatrix).

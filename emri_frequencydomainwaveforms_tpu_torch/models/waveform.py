@@ -19,6 +19,7 @@ import torch
 
 from ..ops.cubic_spline import fit_cubic_spline, spline_eval
 from ..utils.constants import Gpc, MRSUN_SI, YRSID_SI
+from ..utils.device import resolve_device
 from ..utils.ylm import spin_weighted_ylm
 from .amplitude import ModeTable, family_constants, mode_amplitudes
 from .geodesic import fundamental_frequencies_seconds
@@ -73,7 +74,9 @@ def waveform_prologue(
     exactly the given candidate modes (shared by the batch); otherwise each
     lane keeps its top-``k_max`` modes masked to power fraction 1 - eps,
     ordered by band-start frequency. Only the flat physics (flux="pm", no
-    tail / factorized / rwz) is ported.
+    tail / factorized / rwz) is ported. ``device`` defaults to the first
+    tensor argument's device, else the current CUDA device (raises without
+    one: pass ``device="cpu"``).
     """
     m1, m2, p0, e0, theta, phi, dist, ph0, pr0 = _batch_f64(
         mass_1, mass_2, p0, e0, theta, phi, dist, Phi_phi0, Phi_r0, device=device
@@ -259,7 +262,9 @@ class FrozenFDWaveform(torch.nn.Module):
     extra slots. ``forward(p0, e0, theta, phi)`` runs the prologue and the
     banded FD core for the batch and returns the four float32 spectra
     (hp_re, hp_im, hc_re, hc_im), each (B, nf), on the uniform grid
-    f = f0 + i df.
+    f = f0 + i df. The buffers, and so the forward pass, live on ``device``:
+    by default the current CUDA device (raises without one: pass
+    ``device="cpu"``); ``.to()`` moves them as for any module.
     """
 
     def __init__(
@@ -280,8 +285,10 @@ class FrozenFDWaveform(torch.nn.Module):
         turnover_slots: int = 2,
         extra_band_runs: int = 64,
         band_offsets_extra=None,
+        device=None,
     ):
         super().__init__()
+        dev = resolve_device(device)
         self.table = table
         self.f0, self.df, self.nf = float(f0), float(df), int(nf)
         self.t_years = float(t_years)
@@ -292,12 +299,16 @@ class FrozenFDWaveform(torch.nn.Module):
         if band_offsets_extra is None:
             band_offsets_extra = np.zeros((turnover_slots,), np.int32)
         lmn = np.stack([table.ls, table.ms, table.ns], axis=-1)
-        self.register_buffer("lmn", torch.as_tensor(lmn, dtype=torch.int64))
-        self.register_buffer("family_c", torch.as_tensor(family_constants(table)))
-        self.register_buffer("forced_idx", torch.arange(table.num_modes, dtype=torch.int64))
-        self.register_buffer("band_offsets", torch.as_tensor(band_offsets, dtype=torch.int32))
+        self.register_buffer("lmn", torch.as_tensor(lmn, dtype=torch.int64, device=dev))
+        self.register_buffer("family_c", torch.as_tensor(family_constants(table), device=dev))
         self.register_buffer(
-            "band_offsets_extra", torch.as_tensor(band_offsets_extra, dtype=torch.int32)
+            "forced_idx", torch.arange(table.num_modes, dtype=torch.int64, device=dev)
+        )
+        self.register_buffer(
+            "band_offsets", torch.as_tensor(band_offsets, dtype=torch.int32, device=dev)
+        )
+        self.register_buffer(
+            "band_offsets_extra", torch.as_tensor(band_offsets_extra, dtype=torch.int32, device=dev)
         )
 
     def forward(self, p0, e0, theta, phi):

@@ -17,7 +17,10 @@ extra slots with their own narrower window), each a `DenseGroup`. Bin
 `fd_dense_accumulate` dispatches on the device of its tensors: CPU tensors
 take the plain PyTorch version `fd_dense_accumulate_reference`; CUDA tensors
 launch ``csrc/fd_dense.cu`` (built with nvcc at first use) or raise. There
-is no fallback from the kernel to the plain version.
+is no fallback from the kernel to the plain version. Both return a (B, 4, nf)
+view of a buffer with longer rows (the kernel's rows are padded to a
+multiple of 32 bins, `output_buffer`), so a channel ``out[:, c]`` is a
+strided (B, nf) tensor.
 """
 
 from __future__ import annotations
@@ -39,6 +42,10 @@ _TWO_PI = 2.0 * math.pi
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "fd_dense.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_ROW_ALIGN = 32  # bins: 128-byte aligned float32 rows
+_MAX_SLOTS = 512  # slots in all groups: the kernel's per-tile list is in shared memory
+_MAX_BINS = 2**31 - 2**16  # bin indices and padded rows stay int32
+_VECTOR_BYTES = 16  # pc, ec and w are read as float4
 
 
 class DenseGroup(NamedTuple):
@@ -176,9 +183,25 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_kernel()[0])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     group = [p, p, p, p, p, p, p, i, i]
-    lib.fd_dense_launch.argtypes = group + group + [p, i, i, i, f, f, p]
+    lib.fd_dense_launch.argtypes = group + group + [p, i, i, i, i, f, f, p]
     lib.fd_dense_launch.restype = ctypes.c_int
     return lib
+
+
+def padded_bins(nf: int) -> int:
+    """Row length of the kernel's output buffer: nf rounded up to a multiple
+    of 32 bins, so every row starts 128-byte aligned and takes float4 stores."""
+    return -(-nf // _ROW_ALIGN) * _ROW_ALIGN
+
+
+def output_buffer(n_b: int, nf: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(buffer (B, 4, padded_bins(nf)), its (B, 4, nf) view) in float32.
+
+    The kernel writes the whole buffer (pad columns hold zeros); callers get
+    the view, whose channel rows ``view[:, c]`` are strided (B, nf) tensors.
+    """
+    buf = torch.empty((n_b, 4, padded_bins(nf)), dtype=torch.float32, device=device)
+    return buf, buf[..., :nf]
 
 
 def _check_group(grp: DenseGroup, n_b: int, dev: torch.device) -> None:
@@ -198,45 +221,62 @@ def _check_group(grp: DenseGroup, n_b: int, dev: torch.device) -> None:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: must be a contiguous tensor on {dev}")
+    for name in ("pc", "ec", "w"):
+        if getattr(grp, name).data_ptr() % _VECTOR_BYTES:
+            raise ValueError(f"{name}: the kernel reads it as float4; its data must start "
+                             f"{_VECTOR_BYTES}-byte aligned")
 
 
-def fd_dense_accumulate(groups: Sequence[DenseGroup], *, r: int, nf: int) -> torch.Tensor:
-    """Dense pass over one or two slot groups -> (B, 4, nf) float32.
-
-    CPU tensors run `fd_dense_accumulate_reference`. CUDA tensors launch the
-    kernel on the current stream (no synchronisation; the output is the only
-    allocation) and count the launch in ``fd_dense_accumulate.launches``.
-    """
-    dev = groups[0].pc.device
-    if dev.type == "cpu":
-        return fd_dense_accumulate_reference(groups, r=r, nf=nf)
-    if dev.type != "cuda":
-        raise ValueError(f"fd_dense_accumulate: unsupported device {dev}")
+def check_call(groups: Sequence[DenseGroup], *, r: int, nf: int) -> None:
+    """Raise ValueError unless the kernel can take these tables: one or two
+    groups of contiguous tensors on one device, of the `DenseGroup` shapes
+    and dtypes, with pc, ec and w 16-byte aligned; 1 <= r <= 128; at most
+    512 slots in all; B <= 65535 and nf < 2^31 - 2^16."""
     if not 1 <= len(groups) <= 2:
         raise ValueError("fd_dense_accumulate takes one or two slot groups")
     if not 1 <= r <= 128:
         # the int32 cycle chain stays below 2^30 only for r <= 128
         raise ValueError(f"bins per run r={r} outside [1, 128]")
     n_b = groups[0].pc.shape[0]
-    if not 1 <= n_b <= 65535 or nf < 1:
-        raise ValueError(f"batch {n_b} outside [1, 65535] or empty grid nf={nf}")
+    if not 1 <= n_b <= 65535 or not 1 <= nf <= _MAX_BINS:
+        raise ValueError(f"batch {n_b} outside [1, 65535] or grid nf={nf} outside [1, {_MAX_BINS}]")
+    if sum(grp.pc.shape[1] for grp in groups) > _MAX_SLOTS:
+        # the per-tile slot list lives in shared memory
+        raise ValueError(f"more than {_MAX_SLOTS} slots in all")
     for grp in groups:
-        _check_group(grp, n_b, dev)
-    lib = _library()
-    out = torch.empty((n_b, 4, nf), dtype=torch.float32, device=dev)
+        _check_group(grp, n_b, groups[0].pc.device)
+
+
+def fd_dense_accumulate(groups: Sequence[DenseGroup], *, r: int, nf: int) -> torch.Tensor:
+    """Dense pass over one or two slot groups -> (B, 4, nf) float32.
+
+    CPU tensors run `fd_dense_accumulate_reference`. CUDA tensors are held to
+    `check_call`, then launch the kernel on the current stream (no
+    synchronisation; the output is the only allocation) and count the launch
+    in ``fd_dense_accumulate.launches``. The result is the (B, 4, nf) view of
+    `output_buffer`'s padded rows.
+    """
+    dev = groups[0].pc.device
+    if dev.type == "cpu":
+        return fd_dense_accumulate_reference(groups, r=r, nf=nf)
+    if dev.type != "cuda":
+        raise ValueError(f"fd_dense_accumulate: unsupported device {dev}")
+    check_call(groups, r=r, nf=nf)
+    n_b = groups[0].pc.shape[0]
+    buf, out = output_buffer(n_b, nf, dev)
 
     def args(grp: DenseGroup | None):
         if grp is None:
             return [None] * 7 + [0, 0]
-        ptrs = [t.data_ptr() for t in grp]
-        return ptrs + [grp.pc.shape[1], grp.pc.shape[2]]
+        return [t.data_ptr() for t in grp] + [grp.pc.shape[1], grp.pc.shape[2]]
 
     extra = groups[1] if len(groups) > 1 else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _library()
     with torch.cuda.device(dev):
         err = lib.fd_dense_launch(
-            *args(groups[0]), *args(extra), out.data_ptr(), n_b, nf, r,
-            float(np.float32(1.0 / r)), _cycle_scale(r), stream,
+            *args(groups[0]), *args(extra), buf.data_ptr(), n_b, nf, buf.shape[2], r,
+            float(np.float32(1.0 / r)), _cycle_scale(r),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fd_dense kernel launch failed: cudaError {err}")
@@ -250,5 +290,8 @@ __all__ = [
     "DenseGroup",
     "fd_dense_accumulate",
     "fd_dense_accumulate_reference",
+    "check_call",
     "build_kernel",
+    "output_buffer",
+    "padded_bins",
 ]

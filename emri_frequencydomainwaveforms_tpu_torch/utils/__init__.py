@@ -1,1 +1,1 @@
-"""Shared utilities: constants and spin-weighted harmonics."""
+"""Shared utilities: constants, spin-weighted harmonics and the choice of device."""

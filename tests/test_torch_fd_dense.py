@@ -142,7 +142,7 @@ def test_fd_mode_sum_uniform_with_extra_slots(fd_inputs):
               extra_band_runs=64)
     ref = jax.jit(lambda i: j_fd.fd_mode_sum_uniform(i, F0, DF, NF, **kw))(fd_inputs)
     got = t_fd.fd_mode_sum_uniform(
-        convert.fd_inputs_from_numpy(jax.tree_util.tree_map(np.asarray, fd_inputs)),
+        convert.fd_inputs_from_numpy(jax.tree_util.tree_map(np.asarray, fd_inputs), device="cpu"),
         F0, DF, NF, **kw,
     )
     for a, b in zip(ref, got):
@@ -192,3 +192,31 @@ def test_plain_dense_matches_pallas_interpret():
     for c in range(4):
         scale = np.max(np.abs(ref[c]))
         assert np.max(np.abs(got[c] - ref[c])) / scale < 1e-4
+
+
+def test_fd_mode_sum_uniform_takes_the_kernels_padded_rows(fd_inputs, monkeypatch):
+    """The CUDA kernel returns the (B, 4, nf) view of rows padded to a
+    multiple of 32 bins (`output_buffer`); `fd_mode_sum_uniform` takes its
+    channels as it takes the plain version's, and never reads the pad."""
+    nf = NF - 3  # not a multiple of 32: the rows carry 29 pad columns
+    inp = convert.fd_inputs_from_numpy(jax.tree_util.tree_map(np.asarray, fd_inputs), device="cpu")
+    kw = dict(bins_per_run=R, band_runs=BAND_RUNS, turnover_slots=2, extra_band_runs=64,
+              out_dtype=torch.float32)
+    ref = t_fd.fd_mode_sum_uniform(inp, F0, DF, nf, **kw)
+    seen = []
+
+    def padded(groups, *, r, nf):
+        plain = t_dense.fd_dense_accumulate_reference(groups, r=r, nf=nf)
+        buf, out = t_dense.output_buffer(plain.shape[0], nf, plain.device)
+        buf.fill_(float("nan"))
+        out.copy_(plain)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(t_fd, "fd_dense_accumulate", padded)
+    got = t_fd.fd_mode_sum_uniform(inp, F0, DF, nf, **kw)
+    assert len(seen) == 1 and seen[0].shape == (1, 4, nf)
+    assert seen[0].stride(1) == t_dense.padded_bins(nf) > nf
+    for a, b in zip(ref, got):
+        assert b.shape == (1, nf) and b.dtype == torch.float32
+        assert torch.equal(a, b)

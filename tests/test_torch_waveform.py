@@ -62,11 +62,11 @@ def test_eps_selected_source_uniform_grid():
     ref = jax.jit(lambda p: j_wf.fd_waveform_core(p, table, jnp.zeros(nf), **core))(pro_j)
 
     t_table = convert.mode_table_from_numpy(*table)
-    pro_t = t_wf.waveform_prologue(*args, **kw)
+    pro_t = t_wf.waveform_prologue(*args, **kw, device="cpu")
     assert int(pro_t.n_live[0]) == int(pro_j.n_live)
     np.testing.assert_array_equal(pro_t.sel.idx[0].numpy(), np.asarray(pro_j.sel.idx))
     np.testing.assert_array_equal(pro_t.sel.mask[0].numpy(), np.asarray(pro_j.sel.mask))
-    for pro in (convert.prologue_from_numpy(_to_numpy(pro_j)), pro_t):
+    for pro in (convert.prologue_from_numpy(_to_numpy(pro_j), device="cpu"), pro_t):
         got = t_wf.fd_waveform_core(pro, t_table, nf, **core)
         assert got[0].shape == (1, nf) and got[0].dtype == torch.float64
         _assert_close(ref, got)
@@ -85,7 +85,8 @@ def test_frozen_batch_matches_reference():
 
     # representative source with eps selection; both packages pick the same slots
     pro_sel = jax.jit(lambda: j_wf.waveform_prologue(*src, table=table, **kw))()
-    pro_sel_t = t_wf.waveform_prologue(*src, table=convert.mode_table_from_numpy(*table), **kw)
+    pro_sel_t = t_wf.waveform_prologue(
+        *src, table=convert.mode_table_from_numpy(*table), **kw, device="cpu")
     np.testing.assert_array_equal(pro_sel_t.sel.idx[0].numpy(), np.asarray(pro_sel.sel.idx))
     fz = j_wf.freeze_mode_selection(pro_sel, table, f0, df)
     table_k = table.take(fz.forced_idx)
@@ -95,7 +96,8 @@ def test_frozen_batch_matches_reference():
     pro0 = jax.jit(lambda: j_wf.waveform_prologue(
         *src, table=table_k, forced_idx=idx_k, **kw))()
     offsets = j_wf.band_offsets_for(pro0, table_k, f0, df, fz.bins_per_run, fz.band_runs)
-    pro0_t = t_wf.waveform_prologue(*src, table=convert.mode_table_from_numpy(*table_k), forced_idx=idx_k, **kw)
+    pro0_t = t_wf.waveform_prologue(
+        *src, table=convert.mode_table_from_numpy(*table_k), forced_idx=idx_k, **kw, device="cpu")
     np.testing.assert_array_equal(
         t_wf.band_offsets_for(pro0_t, convert.mode_table_from_numpy(*table_k), f0, df, fz.bins_per_run, fz.band_runs),
         offsets,
@@ -108,7 +110,7 @@ def test_frozen_batch_matches_reference():
     gen = t_wf.FrozenFDWaveform(
         convert.mode_table_from_numpy(*table_k), offsets, f0=f0, df=df, nf=nf, t_years=0.1, max_steps=128,
         bins_per_run=fz.bins_per_run, band_runs=fz.band_runs, turnover_slots=2,
-        extra_band_runs=64,
+        extra_band_runs=64, device="cpu",
     )
     batch = [torch.tensor(v, dtype=torch.float64) for v in zip(*lanes)]
     got_batch = gen(*batch)
@@ -125,7 +127,8 @@ def test_frozen_batch_matches_reference():
         if lane == 0:
             # reference prologue -> convert -> port core
             got = t_wf.fd_waveform_core(
-                convert.prologue_from_numpy(_to_numpy(pro)), convert.mode_table_from_numpy(*table_k), nf, **core
+                convert.prologue_from_numpy(_to_numpy(pro), device="cpu"),
+                convert.mode_table_from_numpy(*table_k), nf, **core,
             )
             _assert_close(ref, got)
             # a short signal: its content fills a thin slice of the grid
