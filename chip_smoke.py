@@ -4,15 +4,21 @@
 Builds the hand-written CUDA kernel from the sources in this checkout,
 checks it against its plain PyTorch version on the card at the main path's
 shapes and on small adversarial layouts, then drives the port's main path
-once at full width: a 128-walker batch of all-mode FD waveforms of a 1-yr
-source at dt = 10 s (1,577,907 positive bins), eps = 1e-2 selection frozen
-to 16 slots, 256-run windows of 64 bins and 2 turnover slots, with the flat
-physics (Peters-Mathews flux, plain multipole amplitudes); and the same
-module once at B = 1 (the unbatched TPU kernel's path). Then it times the
-kernel on the dense-pass tables those runs produced, beside its plain
-version, its byte bound, a zero fill of the same output (the practical
-write floor) and the kernel with every slot dead. Every phase raises on
-failure.
+at full width: a 128-walker batch of all-mode FD waveforms of a 1-yr source
+at dt = 10 s (1,577,907 positive bins), eps = 1e-2 selection frozen to 16
+slots, 256-run windows of 64 bins and 2 turnover slots, and the same module
+once at B = 1 (the unbatched TPU kernel's path). It does so twice: with the
+flat physics (Peters-Mathews flux, plain multipole amplitudes) and with the
+production physics (``flux="multipole_rwz"``, tail + factorized + rwz
+amplitudes), whose flux grid it first builds on the card. On the production
+path it then runs the reference benchmark's accuracy gates: the step budget
+(gate 0), the frozen set's mode-power coverage (gate 1b), the banded kernel
+against the general sorted-grid kernel and the window truncation (gate 1),
+and a plunging source (gate 1c). Last it times the kernel on the dense-pass
+tables all four runs produced, beside its plain version, its byte bound, a
+zero fill of the same output (the practical write floor) and the kernel with
+every slot dead. Every phase raises on failure; nothing falls back to the
+CPU or to the plain version.
 
     python3 chip_smoke.py
 
@@ -50,6 +56,10 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 OPS_PER_PAIR = 64
 CELL_BYTES = 4 * 4 + 3 * 4 + 8 * 4  # one (slot, run) cell of pc, nc and ec
 SLOT_BYTES = 3 * 4 + 4 * 4  # one slot's i_lo, i_hi, g0 and w
+SOURCE = (1e6, 10.0, 12.0, 0.35, 0.7, 0.5, 1.0, 0.0, 0.0)  # the representative source
+PLUNGING = (1e6, 50.0, 7.6, 0.3, 0.7, 0.5, 1.0, 0.0, 0.0)  # plunges at ~0.03 yr
+RWZ = dict(flux="multipole_rwz", tail=True, factorized=True, rwz=True)
+COVERAGE_CHUNK = 16  # walkers per full-table amplitude evaluation in gate 1b
 
 
 def check(ok: bool, what: str) -> None:
@@ -152,29 +162,198 @@ def capturing(fn, seen):
     return run
 
 
+def rel_l2(res, ref) -> float:
+    """Worst channel's ||res - ref|| / ||ref|| of lane 0, in float64."""
+    import torch
+    return max(
+        float(torch.linalg.vector_norm(o[0].double() - t[0].double())
+              / torch.linalg.vector_norm(t[0].double()))
+        for o, t in zip(res, ref)
+    )
+
+
+def drive_path(label, phys, env):
+    """One physics configuration through the main path at full width.
+
+    Selection prologue on the full table, the table sliced to the frozen
+    slots, shared window offsets from the representative source, the
+    128-walker batch and lane 0 alone through `FrozenFDWaveform`, the twin
+    through the plain dense pass, the same module on the CPU, and the stage
+    times. Returns what the later phases need.
+    """
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
+    table, batch, nf, f0u, dfu = env["table"], env["batch"], env["nf"], env["f0u"], env["dfu"]
+    amp_kw = {k: v for k, v in phys.items() if k != "flux"}
+    flux = phys.get("flux", "pm")
+    # no device named: the entry points run on the current CUDA device
+    pro_sel = wf.waveform_prologue(
+        *SOURCE, t_years=T_YEARS, table=table, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS, **phys
+    )
+    check(pro_sel.t_knots.device == dev, f"prologue on {pro_sel.t_knots.device} by default")
+    forced_idx = pro_sel.sel.idx[0].cpu().numpy()
+    table_k = table.take(forced_idx)
+    idx_k = np.arange(len(forced_idx))
+    pro0 = wf.waveform_prologue(
+        *SOURCE, t_years=T_YEARS, table=table_k, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS,
+        forced_idx=idx_k, **phys,
+    )
+    offsets = wf.band_offsets_for(pro0, table_k, f0u, dfu, BINS_PER_RUN, BAND_RUNS)
+    gen = wf.FrozenFDWaveform(
+        table_k, offsets, f0=f0u, df=dfu, nf=nf, t_years=T_YEARS, mass_1=1e6, mass_2=10.0,
+        max_steps=MAX_STEPS, bins_per_run=BINS_PER_RUN, band_runs=BAND_RUNS,
+        turnover_slots=TURNOVER_SLOTS, extra_band_runs=EXTRA_BAND_RUNS, **phys,
+    )
+    check(gen.lmn.device == dev, f"FrozenFDWaveform buffers on {gen.lmn.device} by default")
+    if flux != "pm":
+        check(gen.flux_values.device == dev and tuple(gen.flux_values.shape) == (96, 49, 2),
+              "the module holds the (96, 49, 2) flux grid on the card")
+
+    fd_dense.fd_dense_accumulate.launches = 0
+    out = gen(*batch)
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    check(launches > 0, f"{label}: the main path launched the fd_dense kernel")
+    check(all(o.shape == (BATCH, nf) and o.dtype == torch.float32 for o in out), "output shapes")
+    check(all(bool(torch.isfinite(o).all()) for o in out), f"{label}: all outputs finite")
+    hp_abs = torch.hypot(out[0], out[1])
+    nonzero = int((hp_abs > 0).sum(dim=1).min())
+    peak = float(hp_abs.max())
+    check(nonzero > 0, "every lane has nonzero bins")
+    # |h~| ~ |A| / sqrt(fdot) at 1 Gpc for mu = 10 Msun: ~1e-18 1/Hz
+    check(1e-21 < peak < 1e-15, f"peak |h+~| {peak:.3e} physically sane")
+
+    # the B = 1 path (the unbatched TPU kernel's): lane 0 alone, through the kernel
+    lane0 = [x[:1] for x in batch]
+    fd_dense.fd_dense_accumulate.launches = 0
+    single = gen(*lane0)
+    torch.cuda.synchronize()
+    launches_1 = fd_dense.fd_dense_accumulate.launches
+    check(launches_1 > 0, f"{label}: the B = 1 path launched the fd_dense kernel")
+    check(all(bool(torch.isfinite(o).all()) for o in single), f"{label}: B = 1 outputs finite")
+    # lane 0 against its twin through the plain dense pass, on the card
+    tables_1 = []
+    with dense_function(summation_fd,
+                        capturing(fd_dense.fd_dense_accumulate_reference, tables_1)):
+        twin = gen(*lane0)
+    rel, rel_1 = rel_l2(out, twin), rel_l2(single, twin)
+    check(rel <= 1e-5, f"{label}: lane 0 vs plain-dense twin rel L2 {rel:.3e} <= 1e-5")
+    check(rel_1 <= 1e-5, f"{label}: B = 1 run vs plain-dense twin rel L2 {rel_1:.3e} <= 1e-5")
+    # lane 0 against the same module on the CPU (plain paths throughout)
+    host = gen.to("cpu")(*(x.cpu() for x in lane0))
+    gen.to(dev)
+    rel_cpu = rel_l2([o.cpu() for o in out], host)
+    check(rel_cpu <= 1e-4, f"{label}: lane 0 GPU vs CPU rel L2 {rel_cpu:.3e} <= 1e-4")
+
+    # ---- timing (informational) ----
+    del out, twin, host, hp_abs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        gen(*batch)
+    torch.cuda.synchronize()
+    per_batch = (time.perf_counter() - t0) / 3
+    stage = {}
+    grid = gen.flux_grid()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = env["inspiral"].schwarz_ecc_flux_inspiral(
+        1e6, 10.0, batch[0], batch[1], t_years=T_YEARS, max_steps=MAX_STEPS, flux=flux,
+        flux_grid=grid)
+    torch.cuda.synchronize()
+    stage["trajectory"] = time.perf_counter() - t0
+    max_knots = int(traj.n.max())
+    rows = (gen.rwz_b_rows, gen.rwz_r_rows) if gen.rwz else None
+    t0 = time.perf_counter()
+    env["amplitude"].mode_amplitudes(traj.p, traj.e, table_k, family_c=gen.family_c,
+                                     rwz_rows=rows, **amp_kw)
+    torch.cuda.synchronize()
+    stage["amplitudes"] = time.perf_counter() - t0
+    pro = wf.waveform_prologue(
+        1e6, 10.0, *batch, 1.0, 0.0, 0.0, t_years=T_YEARS, table=table_k, k_max=K_MAX, eps=EPS,
+        max_steps=MAX_STEPS, forced_idx=idx_k, family_c=gen.family_c, flux_grid=grid,
+        rwz_rows=rows, **phys,
+    )
+    dense_s = []
+    tables = []
+
+    def timed_dense(groups_, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fd_dense.fd_dense_accumulate(groups_, **kw)
+        torch.cuda.synchronize()
+        dense_s.append(time.perf_counter() - t1)
+        return res
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dense_function(summation_fd, capturing(timed_dense, tables)):
+        wf.fd_waveform_core(
+            pro, table_k, nf, channels=True, uniform=(f0u, dfu), band_runs=BAND_RUNS,
+            band_offsets=gen.band_offsets, bins_per_run=BINS_PER_RUN,
+            turnover_slots=TURNOVER_SLOTS, extra_band_runs=EXTRA_BAND_RUNS,
+            band_offsets_extra=gen.band_offsets_extra, out_f32=True,
+        )
+    torch.cuda.synchronize()
+    stage["dense pass"] = dense_s[0]
+    stage["splines + level-1"] = time.perf_counter() - t0 - dense_s[0]
+    print(f"[{label}] B={BATCH} nf={nf} slots={len(forced_idx)}+{TURNOVER_SLOTS}: finite, "
+          f"fd_dense launches={launches}, min nonzero bins/lane={nonzero}, peak |h+~|={peak:.4e}, "
+          f"max_knots={max_knots}, lane0 vs plain-dense twin rel L2={rel:.3e}, "
+          f"lane0 vs CPU port rel L2={rel_cpu:.3e}; B=1 run: fd_dense launches={launches_1}, "
+          f"vs plain-dense twin rel L2={rel_1:.3e}", flush=True)
+    print(f"[timing {label}] {BATCH / per_batch:.2f} waveforms/s ({per_batch * 1e3:.1f} ms per "
+          f"{BATCH}-walker batch, host clock, synchronized); stages (ms): "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stage.items())
+          + f"; on {card}", flush=True)
+    return dict(gen=gen, table_k=table_k, forced_idx=forced_idx, pro=pro, traj=traj,
+                single=single, launches=launches, launches_1=launches_1,
+                tables=tables[0], tables_1=tables_1[0], max_knots=max_knots)
+
+
+def band_edge_mask(wf, pro, tbl, f_at, dfu, edge_runs=2.0):
+    """True where ``f_at`` lies within ``edge_runs`` runs of a live mode
+    band's start, termination or maximum (lane 0): there the banded kernel's
+    level-1 nodes anchor against extrapolated t(f) while the general kernel
+    reads the time spline directly, a localized disagreement the gates report
+    apart from the rest."""
+    fphi_k, fr_k = wf.knot_frequencies(pro)
+    sel_i = pro.sel.idx[0].cpu().numpy()
+    live_m = pro.sel.mask[0].cpu().numpy().astype(bool)
+    nl = int(pro.n_live[0])
+    fk = (tbl.ms[sel_i].astype(float)[:, None] * fphi_k[None, :nl]
+          + tbl.ns[sel_i].astype(float)[:, None] * fr_k[None, :nl])
+    edges = np.concatenate([fk[live_m][:, 0], fk[live_m][:, -1], fk[live_m].max(axis=1)])
+    d = np.min(np.abs(f_at[:, None] - edges[None, :]), axis=1)
+    return d < edge_runs * BINS_PER_RUN * dfu
+
+
+def split_rel_l2(banded, general, sub, is_edge):
+    """Worst channel's RMS of (banded[sub] - general) / RMS(banded[sub]),
+    over the bins off the edges, on them, and over all of them."""
+    off = on = full = 0.0
+    for b_full, g_sub in zip(banded, general):
+        b_sub = b_full[0].double().cpu().numpy()[sub]
+        err = (b_sub - g_sub[0].double().cpu().numpy()) / (np.sqrt(np.mean(b_sub**2)) + 1e-300)
+        full = max(full, float(np.sqrt(np.mean(err**2))))
+        off = max(off, float(np.sqrt(np.mean(err[~is_edge] ** 2))))
+        if is_edge.any():
+            on = max(on, float(np.sqrt(np.mean(err[is_edge] ** 2))))
+    return off, on, full
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from emri_frequencydomainwaveforms_tpu_torch.models import summation_fd
-    from emri_frequencydomainwaveforms_tpu_torch.models.amplitude import (
-        default_mode_table,
-        mode_amplitudes,
-    )
-    from emri_frequencydomainwaveforms_tpu_torch.models.inspiral import (
-        schwarz_ecc_flux_inspiral,
-    )
-    from emri_frequencydomainwaveforms_tpu_torch.models.waveform import (
-        FrozenFDWaveform,
-        band_offsets_for,
-        default_frequencies,
-        fd_waveform_core,
-        waveform_prologue,
-    )
+    from emri_frequencydomainwaveforms_tpu_torch.models import amplitude, flux, inspiral
+    from emri_frequencydomainwaveforms_tpu_torch.models import modeselect, summation_fd
+    from emri_frequencydomainwaveforms_tpu_torch.models import waveform as wf
     from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
     from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
+    from emri_frequencydomainwaveforms_tpu_torch.utils.ylm import spin_weighted_ylm
 
     dev = torch.device("cuda", 0)
     # float32 matmuls (the amplitude projection) in full float32
@@ -202,14 +381,14 @@ def main() -> None:
         r_syn, nf_syn), dev)
     err_syn, scale = compare(torch, fd_dense, cases, groups, r_syn, nf_syn, "synthetic B=128")
     check(scale > 0, "synthetic tables produce output")
-    syn_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r_syn, nf=nf_syn), 20, torch)
+    syn_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r_syn, nf=nf_syn), 10, torch)
     syn_plain_ms = time_ms(
-        lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r_syn, nf=nf_syn), 3, torch)
+        lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r_syn, nf=nf_syn), 2, torch)
     # every slot dead: the kernel's skeleton (slot lists + zero stores)
     dead = [g._replace(i_lo=torch.full_like(g.i_lo, cases.DEAD)) for g in groups]
     check(not bool(fd_dense.fd_dense_accumulate(dead, r=r_syn, nf=nf_syn).any()),
           "all slots dead: exactly 0")
-    skeleton_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(dead, r=r_syn, nf=nf_syn), 20, torch)
+    skeleton_ms = time_ms(lambda: fd_dense.fd_dense_accumulate(dead, r=r_syn, nf=nf_syn), 10, torch)
     del groups, dead
     torch.cuda.empty_cache()
     print(f"[kernel] synthetic B={BATCH} slots={K_MAX}x{BAND_RUNS}+{TURNOVER_SLOTS}x"
@@ -227,159 +406,155 @@ def main() -> None:
           f"max|kernel-plain|/scale {worst:.3e} <= 1e-5, exactly 0 outside every kept band",
           flush=True)
 
-    # ---- phase 4: the slice at full width ----
-    table = default_mode_table(30)
-    freq = default_frequencies(T_YEARS, DT)
+    # ---- phase 4: the flat-physics path at full width ----
+    table = amplitude.default_mode_table(30)
+    freq = wf.default_frequencies(T_YEARS, DT)
     f_np = freq[freq > 0]
     nf = len(f_np)
     f0u, dfu = float(f_np[0]), float(f_np[1] - f_np[0])
-    src = (1e6, 10.0, 12.0, 0.35, 0.7, 0.5, 1.0, 0.0, 0.0)
-    # no device named: the entry points run on the current CUDA device
-    pro_sel = waveform_prologue(
-        *src, t_years=T_YEARS, table=table, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS
-    )
-    check(pro_sel.t_knots.device == dev, f"prologue on {pro_sel.t_knots.device} by default")
-    forced_idx = pro_sel.sel.idx[0].cpu().numpy()
-    table_k = table.take(forced_idx)
-    idx_k = np.arange(len(forced_idx))
-    pro0 = waveform_prologue(
-        *src, t_years=T_YEARS, table=table_k, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS,
-        forced_idx=idx_k,
-    )
-    offsets = band_offsets_for(pro0, table_k, f0u, dfu, BINS_PER_RUN, BAND_RUNS)
-    gen = FrozenFDWaveform(
-        table_k, offsets, f0=f0u, df=dfu, nf=nf, t_years=T_YEARS, mass_1=1e6, mass_2=10.0,
-        max_steps=MAX_STEPS, bins_per_run=BINS_PER_RUN, band_runs=BAND_RUNS,
-        turnover_slots=TURNOVER_SLOTS, extra_band_runs=EXTRA_BAND_RUNS,
-    )
-    check(gen.lmn.device == dev, f"FrozenFDWaveform buffers on {gen.lmn.device} by default")
-
     rng = np.random.default_rng(7)  # the reference benchmark's walker jitter
     p0s = 12.0 + 0.12 * (rng.random(BATCH) - 0.5)
     e0s = 0.35 + 0.03 * (rng.random(BATCH) - 0.5)
     ths = 0.7 + 0.2 * (rng.random(BATCH) - 0.5)
     phs = 0.5 + 0.2 * (rng.random(BATCH) - 0.5)
     batch = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (p0s, e0s, ths, phs)]
-
-    fd_dense.fd_dense_accumulate.launches = 0
-    out = gen(*batch)
-    torch.cuda.synchronize()
-    launches = fd_dense.fd_dense_accumulate.launches
-    check(launches > 0, "the main path launched the fd_dense kernel")
-    check(all(o.shape == (BATCH, nf) and o.dtype == torch.float32 for o in out), "output shapes")
-    check(all(bool(torch.isfinite(o).all()) for o in out), "all outputs finite")
-    hp_abs = torch.hypot(out[0], out[1])
-    nonzero = int((hp_abs > 0).sum(dim=1).min())
-    peak = float(hp_abs.max())
-    check(nonzero > 0, "every lane has nonzero bins")
-    # |h~| ~ |A| / sqrt(fdot) at 1 Gpc for mu = 10 Msun: ~1e-18 1/Hz
-    check(1e-21 < peak < 1e-15, f"peak |h+~| {peak:.3e} physically sane")
-    traj = schwarz_ecc_flux_inspiral(
-        1e6, 10.0, batch[0], batch[1], t_years=T_YEARS, max_steps=MAX_STEPS
-    )
-    max_knots = int(traj.n.max())
-    check(max_knots <= MAX_STEPS - 4, f"max_knots {max_knots} <= {MAX_STEPS - 4}")
-
-    # the B = 1 path (the unbatched TPU kernel's): lane 0 alone, through the kernel
-    lane0 = [x[:1] for x in batch]
-    fd_dense.fd_dense_accumulate.launches = 0
-    single = gen(*lane0)
-    torch.cuda.synchronize()
-    launches_1 = fd_dense.fd_dense_accumulate.launches
-    check(launches_1 > 0, "the B = 1 path launched the fd_dense kernel")
-    # lane 0 against its twin through the plain dense pass, on the card
-    tables_1 = []
-    with dense_function(summation_fd,
-                        capturing(fd_dense.fd_dense_accumulate_reference, tables_1)):
-        twin = gen(*lane0)
-    rel_l2, rel_1 = (
-        max(float(torch.linalg.vector_norm(o[0].double() - t[0].double())
-                  / torch.linalg.vector_norm(t[0].double()))
-            for o, t in zip(res, twin))
-        for res in (out, single)
-    )
-    check(rel_l2 <= 1e-5, f"lane 0 vs plain-dense twin rel L2 {rel_l2:.3e} <= 1e-5")
-    check(rel_1 <= 1e-5, f"B = 1 run vs plain-dense twin rel L2 {rel_1:.3e} <= 1e-5")
-    # lane 0 against the same module on the CPU (plain paths throughout)
-    cpu = gen.to("cpu")
-    host = cpu(*(x.cpu() for x in lane0))
-    gen.to(dev)
-    rel_cpu = max(
-        float(torch.linalg.vector_norm(o[0].cpu().double() - h[0].double())
-              / torch.linalg.vector_norm(h[0].double()))
-        for o, h in zip(out, host)
-    )
-    print(f"[slice] B={BATCH} nf={nf} slots={len(forced_idx)}+{TURNOVER_SLOTS}: finite, "
-          f"fd_dense launches={launches}, min nonzero bins/lane={nonzero}, peak |h+~|={peak:.4e}, "
-          f"max_knots={max_knots}, lane0 vs plain-dense twin rel L2={rel_l2:.3e}, "
-          f"lane0 vs CPU port rel L2={rel_cpu:.3e}; B=1 run: fd_dense launches={launches_1}, "
-          f"vs plain-dense twin rel L2={rel_1:.3e}", flush=True)
-    check(rel_cpu <= 1e-4, f"lane 0 GPU vs CPU rel L2 {rel_cpu:.3e} <= 1e-4")
-
-    # ---- timing (informational) ----
-    del out, twin, host, hp_abs, single
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        gen(*batch)
-    torch.cuda.synchronize()
-    per_batch = (time.perf_counter() - t0) / 3
-    stage = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    traj = schwarz_ecc_flux_inspiral(1e6, 10.0, batch[0], batch[1], t_years=T_YEARS,
-                                     max_steps=MAX_STEPS)
-    torch.cuda.synchronize()
-    stage["trajectory"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mode_amplitudes(traj.p, traj.e, table_k, family_c=gen.family_c)
-    torch.cuda.synchronize()
-    stage["amplitudes"] = time.perf_counter() - t0
-    pro = waveform_prologue(
-        1e6, 10.0, *batch, 1.0, 0.0, 0.0, t_years=T_YEARS, table=table_k, k_max=K_MAX, eps=EPS,
-        max_steps=MAX_STEPS, forced_idx=idx_k, family_c=gen.family_c,
-    )
-    dense_s = []
-    tables = []
-
-    def timed_dense(groups_, **kw):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = fd_dense.fd_dense_accumulate(groups_, **kw)
-        torch.cuda.synchronize()
-        dense_s.append(time.perf_counter() - t1)
-        return res
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with dense_function(summation_fd, capturing(timed_dense, tables)):
-        fd_waveform_core(
-            pro, table_k, nf, channels=True, uniform=(f0u, dfu), band_runs=BAND_RUNS,
-            band_offsets=gen.band_offsets, bins_per_run=BINS_PER_RUN,
-            turnover_slots=TURNOVER_SLOTS, extra_band_runs=EXTRA_BAND_RUNS,
-            band_offsets_extra=gen.band_offsets_extra, out_f32=True,
-        )
-    torch.cuda.synchronize()
-    stage["dense pass"] = dense_s[0]
-    stage["splines + level-1"] = time.perf_counter() - t0 - dense_s[0]
-    print(f"[timing] {BATCH / per_batch:.2f} waveforms/s ({per_batch * 1e3:.1f} ms per "
-          f"{BATCH}-walker batch, host clock, synchronized); stages (ms): "
-          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stage.items())
-          + f"; on {card}", flush=True)
-    del pro, traj
+    env = dict(torch=torch, dev=dev, card=card, wf=wf, fd_dense=fd_dense,
+               summation_fd=summation_fd, inspiral=inspiral, amplitude=amplitude,
+               table=table, batch=batch, nf=nf, f0u=f0u, dfu=dfu)
+    flat = drive_path("flat", {}, env)
+    check(flat["max_knots"] <= MAX_STEPS - 4, f"flat max_knots {flat['max_knots']} <= {MAX_STEPS - 4}")
+    flat = {k: flat[k] for k in ("launches", "launches_1", "tables", "tables_1")}
     torch.cuda.empty_cache()
 
-    # ---- phase 5: the kernel on the main path's own tables ----
+    # ---- phase 5: the production flux grid, built on the card ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = flux.default_flux_grid(True, True, True)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    check(grid.values.device == dev and tuple(grid.values.shape) == (96, 49, 2),
+          f"flux grid {tuple(grid.values.shape)} on {grid.values.device}")
+    check(bool(torch.isfinite(grid.values).all()), "flux grid finite")
+    check(bool((grid.values < 0).all()), "every Edot and Ldot of the grid negative")
+    check(flux.default_flux_grid(True, True, True) is grid, "flux grid cached per rung and device")
+    edot = grid.values[..., 0].abs()
+    print(f"[grid] default_flux_grid(tail, factorized, rwz) (96, 49, 2) on {grid.values.device} "
+          f"in {grid_s:.2f} s: |Edot| min {float(edot.min()):.4e} max {float(edot.max()):.4e}, "
+          f"finite, all fluxes negative; on {card}", flush=True)
+
+    # ---- phase 6: the production (rwz) path at full width ----
+    rwz = drive_path("rwz", RWZ, env)
+    gen, table_k, forced_idx = rwz["gen"], rwz["table_k"], rwz["forced_idx"]
+
+    # gate 0: the trajectory step budget covers every lane
+    check(rwz["max_knots"] <= MAX_STEPS - 4, f"rwz max_knots {rwz['max_knots']} <= {MAX_STEPS - 4}")
+    print(f"[gate0] max knots over the {BATCH}-walker rwz batch {rwz['max_knots']} <= "
+          f"{MAX_STEPS - 4}", flush=True)
+
+    # gate 1b: the frozen mode set carries every lane's eps power, scored
+    # against the full candidate table along each lane's own trajectory
+    traj = rwz["traj"]
+    amp_kw = {k: v for k, v in RWZ.items() if k != "flux"}
+    frozen = wf.FrozenSelection(forced_idx, gen.band_offsets.cpu().numpy(), BINS_PER_RUN, BAND_RUNS)
+    t0 = time.perf_counter()
+    cov = []
+    for lo in range(0, BATCH, COVERAGE_CHUNK):
+        lanes = slice(lo, lo + COVERAGE_CHUNK)
+        a_re, a_im = amplitude.mode_amplitudes(traj.p[lanes], traj.e[lanes], table, **amp_kw)
+        yp = spin_weighted_ylm(table.ls, table.ms, batch[2][lanes], batch[3][lanes])
+        ym = spin_weighted_ylm(table.ls, -table.ms, batch[2][lanes], batch[3][lanes])
+        live = (torch.arange(traj.t.shape[1], device=dev)[None, :] < traj.n[lanes, None]).to(a_re.dtype)
+        power = modeselect.mode_power(a_re, a_im, *yp, *ym, dt_weights=live)
+        cov.append(wf.coverage_of(frozen, power))
+        del a_re, a_im, power
+    cov = torch.cat(cov)
+    torch.cuda.synchronize()
+    cov_min = float(cov.min())
+    check(cov.shape == (BATCH,) and bool(torch.isfinite(cov).all()), "coverage finite per lane")
+    check(cov_min >= 1.0 - 1.25 * EPS, f"min coverage {cov_min:.6f} >= {1.0 - 1.25 * EPS}")
+    print(f"[gate1b] min mode-power coverage of the frozen {len(forced_idx)} slots over the batch "
+          f"{cov_min:.6f} >= {1.0 - 1.25 * EPS} (full {table.num_modes}-mode table, "
+          f"{time.perf_counter() - t0:.2f} s)", flush=True)
+    del traj, cov
+    torch.cuda.empty_cache()
+
+    # gate 1: banded kernel vs the general sorted-grid kernel, lane 0
+    lane0 = [x[:1] for x in batch]
+    pro_l0 = wf.waveform_prologue(
+        1e6, 10.0, *lane0, 1.0, 0.0, 0.0, t_years=T_YEARS, table=table_k, k_max=K_MAX, eps=EPS,
+        max_steps=MAX_STEPS, forced_idx=np.arange(len(forced_idx)), **RWZ,
+    )
+    sub = np.arange(0, nf, 617)
+    # full-window banded evaluation: the same kernel with the band windows
+    # off, which separates kernel correctness from the window budget
+    fw_tables = []
+    with dense_function(summation_fd, capturing(fd_dense.fd_dense_accumulate, fw_tables)):
+        banded_fw = wf.fd_waveform_core(
+            pro_l0, table_k, nf, channels=True, uniform=(f0u, dfu), bins_per_run=BINS_PER_RUN,
+            turnover_slots=TURNOVER_SLOTS,
+        )
+    # whole-grid windows are a shape the production path never gives the kernel
+    fw_err, fw_scale = compare(torch, fd_dense, cases, *fw_tables[0], "full-window tables")
+    general = wf.fd_waveform_core(
+        pro_l0, table_k, torch.as_tensor(f_np[sub], device=dev), channels=True,
+        turnover_slots=TURNOVER_SLOTS,
+    )
+    check(all(bool(torch.isfinite(o).all()) for o in (*banded_fw, *general)), "gate 1 outputs finite")
+    is_edge = band_edge_mask(wf, pro_l0, table_k, f_np[sub], dfu)
+    x_non, x_edge, x_full = split_rel_l2(banded_fw, general, sub, is_edge)
+    # window truncation: the production windows (the B = 1 run above) against
+    # the full-window evaluation, what the frozen 256-run budget drops
+    _, _, werr = split_rel_l2(rwz["single"], [w[:, sub] for w in banded_fw], sub,
+                              np.zeros(len(sub), dtype=bool))
+    print(f"[gate1] banded full-window vs general on {len(sub)} bins (lane 0, rwz): rel L2 "
+          f"{x_non:.4e} off the band edges (< 1e-3), {x_edge:.4e} on {int(is_edge.sum())} edge "
+          f"bins (< 0.05), {x_full:.4e} over all; window truncation (production windows vs "
+          f"full window) {werr:.4e} (< 1e-3); kernel vs plain on the full-window tables "
+          f"({fw_tables[0][0][0].pc.shape[2]} runs per slot) rel {fw_err / fw_scale:.3e}", flush=True)
+    check(x_non < 1e-3 and x_edge < 0.05, f"kernel cross-check {x_non:.3e} / edges {x_edge:.3e}")
+    check(werr < 1e-3, f"window truncation {werr:.3e} < 1e-3")
+    del banded_fw, general
+
+    # gate 1c: a plunging source through the banded path with the turnover
+    # slots, against the general kernel
+    pro_pl = wf.waveform_prologue(
+        *PLUNGING, t_years=T_YEARS, table=table, k_max=K_MAX, eps=EPS, max_steps=MAX_STEPS, **RWZ
+    )
+    sub_pl = np.arange(0, nf, 1043)
+    banded_pl = wf.fd_waveform_core(
+        pro_pl, table, nf, channels=True, uniform=(f0u, dfu), bins_per_run=BINS_PER_RUN,
+        turnover_slots=TURNOVER_SLOTS, extra_band_runs=None,
+    )
+    general_pl = wf.fd_waveform_core(
+        pro_pl, table, torch.as_tensor(f_np[sub_pl], device=dev), channels=True,
+        turnover_slots=TURNOVER_SLOTS,
+    )
+    is_term = band_edge_mask(wf, pro_pl, table, f_np[sub_pl], dfu)
+    pl_non, pl_term, _ = split_rel_l2(banded_pl, general_pl, sub_pl, is_term)
+    t_plunge = float(pro_pl.t_end[0]) / 31558149.763545603
+    print(f"[gate1c] plunging source (ends at {t_plunge:.4f} yr, {int(pro_pl.n_live[0])} knots) "
+          f"banded vs general on {len(sub_pl)} bins: rel L2 {pl_non:.4e} off the terminations "
+          f"(< 1e-3), {pl_term:.4e} on {int(is_term.sum())} termination bins (< 0.3)", flush=True)
+    check(np.isfinite(pl_non) and pl_non < 1e-3, f"plunge cross-check {pl_non:.3e} < 1e-3")
+    check(np.isfinite(pl_term) and pl_term < 0.3, f"plunge terminations {pl_term:.3e} < 0.3")
+    del banded_pl, general_pl, pro_pl, pro_l0
+    rwz = {k: rwz[k] for k in ("launches", "launches_1", "tables", "tables_1")}
+    del gen
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the kernel on the main paths' own tables ----
     records = []
     for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
-        (tables[0], "fd_dense_accumulate_batched", 203, launches, 20),
-        (tables_1[0], "fd_dense_accumulate", 99, launches_1, 200),
+        (flat["tables"], "fd_dense_accumulate_batched", 203, flat["launches"], 10),
+        (flat["tables_1"], "fd_dense_accumulate", 99, flat["launches_1"], 100),
+        (rwz["tables"], "fd_dense_accumulate_batched[rwz]", 203, rwz["launches"], 10),
+        (rwz["tables_1"], "fd_dense_accumulate[rwz]", 99, rwz["launches_1"], 100),
     ):
         n_b = groups[0].pc.shape[0]
         err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")
         ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf_t), reps, torch)
         plain_ms = time_ms(
-            lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r, nf=nf_t), 3, torch)
+            lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r, nf=nf_t), 2, torch)
         buf = fd_dense.output_buffer(n_b, nf_t, dev)[0]
         zero_fill_ms = time_ms(buf.zero_, reps, torch)
         kernel_dev_ms = device_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf_t), reps,
@@ -400,7 +575,7 @@ def main() -> None:
             "replaces": f"{PALLAS}:{pallas_line}", "launches": n_launched,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "zero_fill_ms": zero_fill_ms,
-            "device_ms": kernel_dev_ms,
+            "device_ms": kernel_dev_ms, "tables": "rwz" if name.endswith("[rwz]") else "flat",
         })
         if n_b == BATCH:
             records[-1]["skeleton_ms"] = skeleton_ms

@@ -23,8 +23,11 @@ Conventions:
   ``csrc/fd_dense.cu`` and is wrapped by ``ops/fd_dense.py``; on CPU tensors
   the wrapper runs its plain PyTorch version.
 
-The slice ported so far is the ``flat`` physics configuration (Peters-Mathews
-flux, plain multipole amplitudes) of the batched uniform-grid FD path.
+Ported so far: the batched FD waveform path from `waveform_prologue` through
+`fd_waveform_core`, with the flat physics (Peters-Mathews flux, plain
+multipole amplitudes) and the production physics (the multipole flux grid
+with tail, factorized and rwz amplitudes), on the banded uniform-grid kernel
+and on the general sorted-grid kernel that checks it.
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .models.amplitude import ModeTable
+from .models.flux import FluxGrid
 from .models.modeselect import SelectedModes
 from .models.summation_fd import FDKernelInputs
 from .models.waveform import WaveformPrologue
@@ -76,4 +77,20 @@ def fd_inputs_from_numpy(fields, device=None) -> FDKernelInputs:
     return FDKernelInputs(**{k: _tensor(f[k], device, k, add) for k in FDKernelInputs._fields})
 
 
-__all__ = ["mode_table_from_numpy", "prologue_from_numpy", "fd_inputs_from_numpy"]
+def flux_grid_from_numpy(u0, du, e0, de, values, device=None) -> FluxGrid:
+    """A port `FluxGrid` from the fields of the reference's (spacings as
+    Python floats, ``values`` (nu, ne, 2) float64 numpy); ``device`` as for
+    `prologue_from_numpy`. Trajectories integrated over the same grid agree
+    to integrator rounding, which two independently built grids (float32
+    amplitude projections summed in different orders) cannot."""
+    device = resolve_device(device)
+    vals = torch.as_tensor(np.array(values, dtype=np.float64), device=device)
+    return FluxGrid(float(u0), float(du), float(e0), float(de), vals)
+
+
+__all__ = [
+    "mode_table_from_numpy",
+    "prologue_from_numpy",
+    "fd_inputs_from_numpy",
+    "flux_grid_from_numpy",
+]

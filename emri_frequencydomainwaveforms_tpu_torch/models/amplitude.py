@@ -1,8 +1,9 @@
-"""Multipole mode amplitudes A_lmn(p, e), flat physics.
+"""Multipole mode amplitudes A_lmn(p, e).
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.models.amplitude``
 (`ModeTable`, `default_mode_table`, `_orbit_harmonics`, `mode_amplitudes`
-without the tail / factorized / rwz rungs). Every family reduces to
+with its tail / factorized / rwz rungs, `full_fidelity_amplitudes`). Every
+family reduces to
 
   A_lmn = C_lm * omega_mn^l * F_n[g_lm],   omega_mn = m Omega_phi + n Omega_r,
 
@@ -22,7 +23,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .amplitude_backends import u_of_pe
 from .geodesic import _N_CHI, _antiderivative_matrix
+from .rho import _x_of_mode, factorized_correction
+from .rwz_calibration import rwz_correction, rwz_ecc_residual
+from .tail import tail_factor
 
 # (l, m) -> (azimuthal k of g_lm, r power, ell power, C_re, C_im). A copy of
 # the reference table (the port never imports the JAX package); the CPU
@@ -293,19 +298,27 @@ def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None
 
 def mode_amplitudes(
     p: torch.Tensor, e: torch.Tensor, table: ModeTable,
-    *, tail: bool = False, factorized: bool = False, rwz: bool = False,
+    *, tail: bool = False, tail_r0: float = 2.0,
+    factorized: bool = False, rwz: bool = False,
     family_c: torch.Tensor | None = None,
+    rwz_rows: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A_lmn(p, e) for every mode in ``table`` -> (re, im) of ``p.shape + (M,)``.
 
-    ``family_c``: the table's (M, 2) family constants already on the device
-    (`family_constants`), as a batch-frozen module keeps them; None looks
-    them up. The tail / factorized / rwz rungs are not ported yet.
+    ``tail=True`` multiplies each harmonic by the relativistic tail factor
+    T_lm(omega_mn) (`models.tail`, gauge constant ``tail_r0``);
+    ``factorized=True`` by the effective source and residual resummation
+    S_hat rho_lm^l e^{i delta_lm} (`models.rho`); ``rwz=True`` (only on top
+    of the other two) by the strong-field calibration B_lm(x_mn) R_lmn(u, e)
+    (`models.rwz_calibration`).
+
+    ``family_c`` and ``rwz_rows``: the table's (M, 2) family constants
+    (`family_constants`) and its calibration rows
+    (`rwz_calibration.rwz_rows`) already on the device, as a batch-frozen
+    module keeps them; None looks them up.
     """
-    if tail or factorized or rwz:
-        raise NotImplementedError(
-            "tail / factorized / rwz amplitudes are ported with the rwz physics slice"
-        )
+    if rwz and not (tail and factorized):
+        raise ValueError("rwz=True requires tail=True, factorized=True")
     n_max = int(np.max(np.abs(table.ns))) if table.num_modes else 0
     dev = p.device
 
@@ -345,11 +358,48 @@ def mode_amplitudes(
         pw = torch.where(ls == l, powers[l], pw)
 
     a = pw * f_sel
-    re = c32[:, 0] * a
-    im = c32[:, 1] * a
     # downstream (spline fits, FD pass) runs float64; values carry float32
     # accuracy (~1e-6 relative)
-    return re.to(p.dtype), im.to(p.dtype)
+    dt = p.dtype
+    re = (c32[:, 0] * a).to(dt)
+    im = (c32[:, 1] * a).to(dt)
+    if not (tail or factorized):
+        return re, im
+    # the corrections take the float32 mode frequency, cast: the value the
+    # flat amplitude was formed with, not a float64 recomputation
+    omega = omega_mn.to(dt)
+    if tail:
+        t_re, t_im = tail_factor(table.ls, omega, r0=tail_r0)
+        re, im = re * t_re - im * t_im, re * t_im + im * t_re
+    if factorized:
+        c_re, c_im = factorized_correction(table.ls, table.ms, p, e, omega)
+        re, im = re * c_re - im * c_im, re * c_im + im * c_re
+    if rwz:
+        b_rows, r_rows = rwz_rows if rwz_rows is not None else (None, None)
+        b = rwz_correction(table.ls, table.ms, _x_of_mode(omega, table.ms), rows=b_rows)
+        # complex eccentric residual: |R| corrects the modulus, arg R the
+        # per-mode phase
+        r_re, r_im = rwz_ecc_residual(
+            table.ls, table.ms, table.ns, u_of_pe(p, e), e, rows=r_rows
+        )
+        c_re, c_im = b * r_re, b * r_im
+        re, im = re * c_re - im * c_im, re * c_im + im * c_re
+    return re, im
 
 
-__all__ = ["ModeTable", "default_mode_table", "family_constants", "mode_amplitudes"]
+def full_fidelity_amplitudes(
+    p: torch.Tensor, e: torch.Tensor, table: ModeTable
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`mode_amplitudes` at the highest physics rung: tail + factorized
+    resummation + the rwz strong-field calibration with its eccentric
+    residual."""
+    return mode_amplitudes(p, e, table, tail=True, factorized=True, rwz=True)
+
+
+__all__ = [
+    "ModeTable",
+    "default_mode_table",
+    "family_constants",
+    "mode_amplitudes",
+    "full_fidelity_amplitudes",
+]

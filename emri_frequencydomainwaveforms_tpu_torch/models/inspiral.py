@@ -1,9 +1,11 @@
 """Batched Schwarzschild eccentric flux inspirals.
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.models.inspiral`` for the
-adaptive DP5 stepper (``method="dp5"`` there) with ``flux="pm"``: `schwarz_ecc_flux_inspiral` integrates
-a walker batch of trajectories at the integrator's own adaptive knots, and
-`get_p_at_t` bisects p0 for a given inspiral duration.
+adaptive DP5 stepper (``method="dp5"`` there): `schwarz_ecc_flux_inspiral`
+integrates a walker batch of trajectories at the integrator's own adaptive
+knots, under the Peters-Mathews flux or one of the multipole flux grids
+(`models.flux`); `get_p_at_t` and `get_mu_at_t` bisect p0 or mu for a given
+inspiral duration.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from ..utils.constants import MTSUN_SI, YRSID_SI
 from ..utils.device import resolve_device
-from .flux import inspiral_rhs, stop_condition
+from .flux import FluxGrid, default_flux_grid, inspiral_rhs, pn_flux_e_l, stop_condition
 from .geodesic import separatrix
 from .integrate import InspiralKnots, integrate_inspiral
 
@@ -44,6 +46,30 @@ def _batch_f64(*xs, device=None):
     return list(torch.broadcast_tensors(*ts))
 
 
+# flux name -> (tail, factorized, rwz) rung of the multipole flux grid:
+# "multipole_factorized" = tail + source/rho resummation, "multipole_rwz"
+# adds the strong-field calibration
+_FLUX_RUNGS = {
+    "multipole": (False, False, False),
+    "multipole_tail": (True, False, False),
+    "multipole_factorized": (True, True, False),
+    "multipole_rwz": (True, True, True),
+}
+
+
+def flux_model(flux: str, device, flux_grid: FluxGrid | None = None):
+    """The dissipative model of a flux name, as `flux.inspiral_rhs` takes
+    it: `pn_flux_e_l` for "pm", else the multipole `FluxGrid` of that rung
+    (``flux_grid`` when given, else `default_flux_grid` on ``device``)."""
+    if flux == "pm":
+        return pn_flux_e_l
+    if flux not in _FLUX_RUNGS:
+        raise ValueError(f"flux={flux!r}: expected 'pm' or one of {sorted(_FLUX_RUNGS)}")
+    if flux_grid is not None:
+        return flux_grid
+    return default_flux_grid(*_FLUX_RUNGS[flux], device=device)
+
+
 def schwarz_ecc_flux_inspiral(
     mass_1,
     mass_2,
@@ -57,6 +83,7 @@ def schwarz_ecc_flux_inspiral(
     rtol: float = 1e-11,
     delta_p_stop: float = 0.12,
     flux: str = "pm",
+    flux_grid: FluxGrid | None = None,
     device=None,
 ) -> Trajectory:
     """Integrate a batch of Schwarzschild eccentric flux inspirals.
@@ -65,23 +92,27 @@ def schwarz_ecc_flux_inspiral(
       mass_1, mass_2: central and secondary masses [solar masses].
       p0, e0: initial semi-latus rectum / eccentricity, scalars or (B,).
       t_years: observation horizon [sidereal years].
-      flux: only "pm" (Peters-Mathews) is ported.
+      flux: dissipative model: "pm" (Peters-Mathews quadrupole),
+        "multipole" (the mode-sum flux grid, energy-balanced with the
+        waveform's multipole content), "multipole_tail" (with the |T_lm|^2
+        wave-tail enhancement), "multipole_factorized" (tail + effective
+        source + rho_lm resummation) or "multipole_rwz" (additionally the
+        rwz strong-field calibration).
+      flux_grid: the multipole grid to interpolate instead of the default
+        one of that rung (`flux.default_flux_grid`, built on first use).
       device: where to run; default the first tensor argument's device, else
         the current CUDA device (raises without one: pass device="cpu").
 
     Returns:
       Trajectory with t in seconds; each lane stops at min(T, separatrix).
     """
-    if flux != "pm":
-        raise NotImplementedError(
-            f"flux={flux!r}: the multipole flux grid is ported with the rwz physics slice"
-        )
     m, mu, p0, e0, ph0, pr0 = _batch_f64(mass_1, mass_2, p0, e0, Phi_phi0, Phi_r0, device=device)
+    flux_fn = flux_model(flux, p0.device, flux_grid)
     nu = mu / m
     t_max_geo = t_years * YRSID_SI / (m * MTSUN_SI)
     y0 = torch.stack([p0, e0, ph0, pr0], dim=-1)
     knots: InspiralKnots = integrate_inspiral(
-        lambda y: inspiral_rhs(y, nu, flux),
+        lambda y: inspiral_rhs(y, nu, flux_fn),
         lambda y: stop_condition(y, delta_p_stop),
         y0,
         t_max_geo,
@@ -103,11 +134,12 @@ def schwarz_ecc_flux_inspiral(
 
 
 def inspiral_duration(mass_1, mass_2, p0, e0, *, t_cap_years: float = 8.0,
-                      max_steps: int = 512, flux: str = "pm", device=None) -> torch.Tensor:
+                      max_steps: int = 512, flux: str = "pm",
+                      flux_grid: FluxGrid | None = None, device=None) -> torch.Tensor:
     """Seconds until the separatrix cutoff (capped at t_cap_years), (B,)."""
     traj = schwarz_ecc_flux_inspiral(
         mass_1, mass_2, p0, e0, t_years=t_cap_years, max_steps=max_steps,
-        flux=flux, device=device,
+        flux=flux, flux_grid=flux_grid, device=device,
     )
     last = (traj.n - 1).clamp_min(0).long()
     return traj.t.gather(1, last[:, None])[:, 0]
@@ -124,6 +156,7 @@ def get_p_at_t(
     n_iters: int = 44,
     max_steps: int = 512,
     flux: str = "pm",
+    flux_grid: FluxGrid | None = None,
     device=None,
 ) -> torch.Tensor:
     """p0 such that the inspiral lasts ``t_out_years`` (batched bisection).
@@ -137,10 +170,48 @@ def get_p_at_t(
     hi = torch.full_like(e0, p_hi)
     for _ in range(n_iters):
         mid = 0.5 * (lo + hi)
-        dur = inspiral_duration(m, mu, mid, e0, t_cap_years=8.0, max_steps=max_steps, flux=flux)
+        dur = inspiral_duration(m, mu, mid, e0, t_cap_years=8.0, max_steps=max_steps,
+                                flux=flux, flux_grid=flux_grid)
         too_long = dur >= t_target
         lo, hi = torch.where(too_long, lo, mid), torch.where(too_long, mid, hi)
     return 0.5 * (lo + hi)
 
 
-__all__ = ["Trajectory", "schwarz_ecc_flux_inspiral", "inspiral_duration", "get_p_at_t"]
+def get_mu_at_t(
+    mass_1,
+    p0,
+    e0,
+    t_out_years,
+    *,
+    mu_lo: float = 1.0,
+    mu_hi: float = 1e4,
+    n_iters: int = 44,
+    max_steps: int = 512,
+    device=None,
+) -> torch.Tensor:
+    """mu such that the inspiral lasts ``t_out_years`` (batched bisection on
+    log mu, Peters-Mathews flux as in the reference).
+
+    A larger mu inspirals faster, so the duration decreases monotonically
+    with it.
+    """
+    m, p0, e0, t_out = _batch_f64(mass_1, p0, e0, t_out_years, device=device)
+    t_target = t_out * YRSID_SI
+    lo = torch.full_like(e0, mu_lo)
+    hi = torch.full_like(e0, mu_hi)
+    for _ in range(n_iters):
+        mid = torch.sqrt(lo * hi)
+        dur = inspiral_duration(m, mid, p0, e0, t_cap_years=8.0, max_steps=max_steps)
+        too_long = dur >= t_target  # too long -> a larger mu
+        lo, hi = torch.where(too_long, mid, lo), torch.where(too_long, hi, mid)
+    return torch.sqrt(lo * hi)
+
+
+__all__ = [
+    "Trajectory",
+    "flux_model",
+    "schwarz_ecc_flux_inspiral",
+    "inspiral_duration",
+    "get_p_at_t",
+    "get_mu_at_t",
+]

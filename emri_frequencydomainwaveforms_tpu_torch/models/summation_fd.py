@@ -1,12 +1,13 @@
-"""Frequency-domain stationary-phase mode summation, banded uniform grid.
+"""Frequency-domain stationary-phase mode summation.
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.models.summation_fd``
-(`FDKernelInputs`, `prepare_fd_inputs`, `fd_mode_sum_uniform` with the
-turnover and negative extra slots, `_polar_envelope`,
+(`FDKernelInputs`, `prepare_fd_inputs`, the general sorted-grid kernel
+`fd_mode_sum`, the banded uniform-grid kernel `fd_mode_sum_uniform`, both
+with the turnover and negative extra slots, `_polar_envelope`,
 `_level1_uniform_tables`); the module docstring there carries the
 mathematics. Every function takes a leading walker-batch axis B.
 
-Two levels, as in the reference:
+The banded kernel has two levels, as in the reference:
 
 * **Level 1** (`_level1_uniform_tables`, float64 phase path, float32
   envelope): per window node, a segment lookup, 3 Newton steps on
@@ -205,6 +206,207 @@ def prepare_fd_inputs(
         w2n_re=take_w(w2n[0] if w2n is not None else None),
         w2n_im=take_w(w2n[1] if w2n is not None else None),
     )
+
+
+def fd_mode_sum(
+    inp: FDKernelInputs,
+    f_pos: torch.Tensor,
+    nodes_per_segment: int = 32,
+    turnover_slots: int = 0,
+    negative_slots: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """General sorted-grid FD summation: sum_i C_i(f) W1_i and W2_i on any
+    ascending positive grid ``f_pos`` (nf,), shared by the batch.
+
+    The independent check of the banded kernel. Level 1 places
+    ``nodes_per_segment`` nodes uniformly in t inside each trajectory spline
+    segment, where f = Phi'/(2 pi), Psi = Phi - 2 pi f t and dPsi/df =
+    -2 pi t are closed forms (no root-finding), and builds per f-interval a
+    cubic Hermite of Psi and a linear polar envelope. Level 2 locates each
+    bin's interval, evaluates the Hermite in float64 (its coefficients reach
+    hundreds of radians), reduces mod 2 pi and finishes (sin/cos, envelope,
+    accumulation) in float32. Slots run one after the other over the whole
+    batch: the main (increasing) slots, then ``turnover_slots`` decreasing
+    branches and ``negative_slots`` negative-frequency branches picked per
+    lane by power, exactly as in `fd_mode_sum_uniform`.
+
+    Returns (o1_re, o1_im, o2_re, o2_im), each (B, nf), in ``f_pos``'s dtype.
+    """
+    t_knots = inp.t_knots
+    dev, dt64 = t_knots.device, t_knots.dtype
+    f32 = torch.float32
+    n_b, k = t_knots.shape
+    s_nodes = nodes_per_segment
+    n_nodes = (k - 1) * s_nodes
+    f_pos = torch.as_tensor(f_pos, device=dev)
+    nf = f_pos.shape[-1]
+
+    # static node layout: segment index + fractional position per node
+    seg_of_node = torch.arange(k - 1, device=dev).repeat_interleave(s_nodes)
+    frac_of_node = (torch.arange(s_nodes, dtype=dt64, device=dev) / s_nodes).repeat(k - 1)
+    h_all = torch.diff(t_knots, dim=-1)  # (B, K-1)
+    dx_node = frac_of_node * h_all[:, seg_of_node]  # (B, N)
+    t_node = t_knots[:, seg_of_node] + dx_node
+    node_idx = torch.arange(n_nodes, device=dev)
+    f_grid = f_pos.expand(n_b, nf).contiguous()
+
+    cphi_all = (
+        inp.m_sel[..., None, None] * inp.c_phi_phi[:, None]
+        + inp.n_sel[..., None, None] * inp.c_phi_r[:, None]
+    )  # (B, k, K-1, 4)
+    k_max = cphi_all.shape[1]
+
+    def ones(n):
+        return torch.ones((n_b, n), dtype=torch.int32, device=dev)
+
+    def pick_of(live, n_slots):
+        return top_k_stable(live * (inp.power + 1e-300), min(n_slots, k_max))[1]
+
+    # slot fields: cphi, ar, ai, w1r, w1i, w2r, w2i, live, k_lo, k_hi, dirn
+    slots = [[cphi_all, inp.ar_c, inp.ai_c, inp.w1_re, inp.w1_im, inp.w2_re, inp.w2_im,
+              inp.inc_live, inp.inc_lo, inp.inc_hi, ones(k_max)]]
+    if turnover_slots > 0:
+        pick = pick_of(inp.dec_live, turnover_slots)
+        slots.append(
+            [_take(x, pick) for x in (cphi_all, inp.ar_c, inp.ai_c, inp.w1_re, inp.w1_im,
+                                      inp.w2_re, inp.w2_im, inp.dec_live, inp.dec_lo, inp.dec_hi)]
+            + [-ones(pick.shape[1])]
+        )
+    if negative_slots > 0:
+        pick_n = pick_of(inp.neg_live, negative_slots)
+        # U = -Phi: negated phase coefficients, A in place of conj(A), the
+        # neg weight pairs; g = -f increases
+        slots.append(
+            [-_take(cphi_all, pick_n), _take(inp.ar_c, pick_n), -_take(inp.ai_c, pick_n)]
+            + [_take(x, pick_n) for x in (inp.w1n_re, inp.w1n_im, inp.w2n_re, inp.w2n_im,
+                                          inp.neg_live, inp.neg_lo, inp.neg_hi)]
+            + [ones(pick_n.shape[1])]
+        )
+    fields = [torch.cat([grp[i] for grp in slots], dim=1) for i in range(11)]
+
+    def at(x, idx):  # per-lane x[idx] along the node axis
+        return torch.gather(x, 1, idx)
+
+    out = [torch.zeros((n_b, nf), dtype=f32, device=dev) for _ in range(4)]
+    for s in range(fields[0].shape[1]):
+        cphi_m, ar_ci, ai_ci, w1r, w1i, w2r, w2i, live_i, k_lo_i, k_hi_i, dirn_i = (
+            x[:, s] for x in fields
+        )
+
+        # ===== Level 1: per-node closed-form evaluation (float64) =====
+        cn = cphi_m[:, seg_of_node]  # (B, N, 4)
+        c0, c1, c2, c3 = cn[..., 0], cn[..., 1], cn[..., 2], cn[..., 3]
+        dxn = dx_node
+        f_n = (c1 + dxn * (2.0 * c2 + 3.0 * c3 * dxn)) / _TWO_PI
+        phi_n = c0 + dxn * (c1 + dxn * (c2 + dxn * c3))
+        psi_n = phi_n - _TWO_PI * f_n * t_node
+        fdot_n = (2.0 * c2 + 6.0 * c3 * dxn) / _TWO_PI
+        fddot_n = (6.0 * c3) / _TWO_PI
+
+        dxn32 = dxn.to(f32)
+        arn = ar_ci[:, seg_of_node].to(f32)
+        ain = ai_ci[:, seg_of_node].to(f32)
+        a_re = arn[..., 0] + dxn32 * (arn[..., 1] + dxn32 * (arn[..., 2] + dxn32 * arn[..., 3]))
+        a_im = ain[..., 0] + dxn32 * (ain[..., 1] + dxn32 * (ain[..., 2] + dxn32 * ain[..., 3]))
+
+        # uniform SPA factor in the overflow-free float32 form (w formed in
+        # float64: fdot^3 underflows float32); on a decreasing branch the
+        # factor is the complex conjugate
+        fdot_s = torch.clamp_min(torch.abs(fdot_n), 1e-300)
+        w_arg = -_TWO_PI * fdot_s**3 / (3.0 * torch.clamp_min(fddot_n * fddot_n, 1e-300))
+        w32 = torch.clamp(w_arg, -1e12, -1e-30).to(f32)
+        k_re, k_im = kve_one_third_imag(w32)
+        k_im = k_im * dirn_i[:, None].to(f32)
+        corr = torch.sqrt(2.0 * torch.abs(w32) * _f32(1.0 / math.pi))
+        inv_sqrt_fdot = torch.rsqrt(torch.clamp_min(fdot_s.to(f32), _f32(1e-37)))
+        cr = k_re * corr * inv_sqrt_fdot
+        ci = k_im * corr * inv_sqrt_fdot
+        # envelope E = conj(A) * F  (float32)
+        e_re = a_re * cr + a_im * ci
+        e_im = a_re * ci - a_im * cr
+
+        # node order must ascend in f: a decreasing branch is traversed in
+        # reverse time
+        rev = dirn_i < 0
+
+        def orient(x):
+            return torch.where(rev[:, None], torch.flip(x, dims=(-1,)), x)
+
+        f_n = orient(f_n)
+        psi_n = orient(psi_n)
+        t_node_o = orient(t_node)
+        e_re = orient(e_re)
+        e_im = orient(e_im)
+
+        # knot window -> node window (in oriented index space)
+        lo_n = k_lo_i.long() * s_nodes
+        hi_n = k_hi_i.long() * s_nodes
+        lo_o = torch.where(rev, (n_nodes - 1) - hi_n, lo_n)
+        hi_o = torch.where(rev, (n_nodes - 1) - lo_n, hi_n)
+
+        # strictly increasing node frequencies: true values inside the
+        # window (its edge nodes included), linear ramps outside, whose
+        # intervals' bins are masked by in_range
+        f_lo_val = at(f_n, lo_o.clamp(0, n_nodes - 1)[:, None])
+        f_hi_val = at(f_n, hi_o.clamp(0, n_nodes - 1)[:, None])
+        step = torch.clamp_min(torch.abs(f_hi_val), 1.0)
+        below = node_idx < lo_o[:, None]
+        above = node_idx > hi_o[:, None]
+        f_node_s = torch.where(
+            below,
+            f_lo_val - (lo_o[:, None] - node_idx).to(dt64) * step,
+            torch.where(above, f_hi_val + (node_idx - hi_o[:, None]).to(dt64) * step, f_n),
+        )
+        f_start, f_end = f_lo_val, f_hi_val  # (B, 1)
+
+        # per-interval coefficients (interval i: node i -> node i+1):
+        # Hermite in xi = (f - f_lo)/df with exact d/dxi = -2 pi t df
+        df_n = torch.diff(f_node_s, dim=-1, append=f_node_s[:, -1:] + 1.0)
+        inv_df = 1.0 / torch.where(torch.abs(df_n) > 0, df_n, torch.ones_like(df_n))
+        psi_hi = torch.roll(psi_n, -1, dims=-1)
+        t_hi = torch.roll(t_node_o, -1, dims=-1)
+        d_lo = -_TWO_PI * t_node_o * df_n
+        d_hi = -_TWO_PI * t_hi * df_n
+        dpsi = psi_hi - psi_n
+        p1 = d_lo
+        p2 = 3.0 * dpsi - 2.0 * d_lo - d_hi
+        p3 = -2.0 * dpsi + d_lo + d_hi
+        # linear polar envelope, anchored at the window-start node so
+        # garbage out-of-window nodes cannot shift in-window phases
+        e_abs, e_phs = _polar_envelope(e_re, e_im, anchor=lo_o)
+        tabs = [e_abs, torch.roll(e_abs, -1, dims=-1) - e_abs,
+                e_phs, torch.roll(e_phs, -1, dims=-1) - e_phs]
+        # a non-finite in-window node would poison its two intervals
+        ea0, dea, ep0, dep = (torch.where(torch.isfinite(v), v, torch.zeros_like(v)) for v in tabs)
+
+        in_range = (f_grid >= f_start) & (f_grid <= f_end)
+
+        # ===== Level 2: dense evaluation =====
+        # interval index = (number of nodes at or below the bin) - 1, from
+        # the nodes' positions in the sorted bin grid (a node equal to a bin
+        # counts for that bin)
+        edge_pos = torch.searchsorted(f_pos, f_node_s.contiguous(), right=False)  # (B, N)
+        counts = torch.zeros((n_b, nf + 1), dtype=torch.int32, device=dev)
+        counts.scatter_add_(1, edge_pos, torch.ones_like(edge_pos, dtype=torch.int32))
+        j = (torch.cumsum(counts[:, :nf], dim=-1) - 1).clamp(0, n_nodes - 2)
+
+        xi64 = (f_grid - at(f_node_s, j)) * at(inv_df, j)
+        xi = xi64.to(f32)
+        psi64 = at(psi_n, j) + xi64 * (at(p1, j) + xi64 * (at(p2, j) + xi64 * at(p3, j)))
+        psi32 = (psi64 - _TWO_PI * torch.round(psi64 * (1.0 / _TWO_PI))).to(f32)
+        amp_b = at(ea0, j) + xi * at(dea, j)
+        psi32 = psi32 + at(ep0, j) + xi * at(dep, j)
+        keep = in_range & (live_i > 0)[:, None]
+        zero = torch.zeros((), dtype=f32, device=dev)
+        c_re = torch.where(keep, amp_b * torch.cos(psi32), zero)
+        c_im = torch.where(keep, amp_b * torch.sin(psi32), zero)
+
+        w1r32, w1i32, w2r32, w2i32 = (w.to(f32)[:, None] for w in (w1r, w1i, w2r, w2i))
+        out[0] = out[0] + c_re * w1r32 - c_im * w1i32
+        out[1] = out[1] + c_re * w1i32 + c_im * w1r32
+        out[2] = out[2] + c_re * w2r32 - c_im * w2i32
+        out[3] = out[3] + c_re * w2i32 + c_im * w2r32
+    return tuple(o.to(f_pos.dtype) for o in out)
 
 
 def fd_mode_sum_uniform(
@@ -607,4 +809,4 @@ def _level1_uniform_tables(
     return pc, nc, ec, f_start, f_end
 
 
-__all__ = ["FDKernelInputs", "prepare_fd_inputs", "fd_mode_sum_uniform"]
+__all__ = ["FDKernelInputs", "prepare_fd_inputs", "fd_mode_sum", "fd_mode_sum_uniform"]

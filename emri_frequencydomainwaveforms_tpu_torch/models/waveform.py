@@ -1,12 +1,13 @@
-"""Batched FD waveform generation: prologue, uniform-grid core, frozen module.
+"""Batched FD waveform generation: prologue, FD cores, frozen module.
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.models.waveform``:
 `waveform_prologue` (trajectory -> amplitudes -> Ylm -> mode selection),
-`fd_waveform_core` (uniform-grid branch), `band_offsets_for`,
-`default_time_grid` / `default_frequencies`, and `FrozenFDWaveform`, the
-``nn.Module`` that holds a walker batch's frozen slot layout and maps
-(p0, e0, theta, phi) to the four float32 spectra — the counterpart of the
-reference benchmark's ``gen`` closure.
+`fd_waveform_core` (the banded uniform-grid branch and the general
+sorted-grid branch), `band_offsets_for`, `freeze_mode_selection` /
+`coverage_of`, `default_time_grid` / `default_frequencies`, and
+`FrozenFDWaveform`, the ``nn.Module`` that holds a walker batch's frozen
+slot layout and maps (p0, e0, theta, phi) to the four float32 spectra — the
+counterpart of the reference benchmark's ``gen`` closure.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from ..utils.constants import Gpc, MRSUN_SI, YRSID_SI
 from ..utils.device import resolve_device
 from ..utils.ylm import spin_weighted_ylm
 from .amplitude import ModeTable, family_constants, mode_amplitudes
+from .flux import FluxGrid
 from .geodesic import fundamental_frequencies_seconds
-from .inspiral import _batch_f64, schwarz_ecc_flux_inspiral
+from .inspiral import _batch_f64, flux_model, schwarz_ecc_flux_inspiral
 from .modeselect import SelectedModes, mode_power, select_modes
-from .summation_fd import fd_mode_sum_uniform, prepare_fd_inputs
+from .rwz_calibration import rwz_rows as rwz_rows_of
+from .summation_fd import fd_mode_sum, fd_mode_sum_uniform, prepare_fd_inputs
 
 
 class WaveformPrologue(NamedTuple):
@@ -66,6 +69,8 @@ def waveform_prologue(
     factorized: bool = False,
     rwz: bool = False,
     family_c: torch.Tensor | None = None,
+    flux_grid: FluxGrid | None = None,
+    rwz_rows: tuple[torch.Tensor, torch.Tensor] | None = None,
     device=None,
 ) -> WaveformPrologue:
     """Trajectory + amplitudes + Ylm + mode selection for a walker batch.
@@ -73,8 +78,12 @@ def waveform_prologue(
     Source parameters are scalars or (B,) tensors. ``forced_idx`` keeps
     exactly the given candidate modes (shared by the batch); otherwise each
     lane keeps its top-``k_max`` modes masked to power fraction 1 - eps,
-    ordered by band-start frequency. Only the flat physics (flux="pm", no
-    tail / factorized / rwz) is ported. ``device`` defaults to the first
+    ordered by band-start frequency. ``flux`` names the trajectory's
+    dissipation model (`inspiral.schwarz_ecc_flux_inspiral`) and ``tail`` /
+    ``factorized`` / ``rwz`` the amplitude rung (`amplitude.mode_amplitudes`);
+    pair flux="multipole_rwz" with all three for the production physics.
+    ``family_c``, ``flux_grid`` and ``rwz_rows`` hand in state a batch-frozen
+    module already keeps on the device. ``device`` defaults to the first
     tensor argument's device, else the current CUDA device (raises without
     one: pass ``device="cpu"``).
     """
@@ -84,10 +93,11 @@ def waveform_prologue(
     dev, dt = p0.device, p0.dtype
     traj = schwarz_ecc_flux_inspiral(
         m1, m2, p0, e0, t_years=t_years, Phi_phi0=ph0, Phi_r0=pr0,
-        max_steps=max_steps, flux=flux,
+        max_steps=max_steps, flux=flux, flux_grid=flux_grid,
     )
     a_re, a_im = mode_amplitudes(
-        traj.p, traj.e, table, tail=tail, factorized=factorized, rwz=rwz, family_c=family_c
+        traj.p, traj.e, table, tail=tail, factorized=factorized, rwz=rwz,
+        family_c=family_c, rwz_rows=rwz_rows,
     )  # (B, K, M)
 
     yp_re, yp_im = spin_weighted_ylm(table.ls, table.ms, theta, phi)
@@ -149,19 +159,20 @@ def fd_waveform_core(
     extra_band_runs: int | None = None,
     band_offsets_extra=None,
     out_f32: bool = False,
+    nodes_per_segment: int = 32,
 ):
     """FD waveforms on positive frequencies, (B, nf) per output.
 
     channels=True: (hp_re, hp_im, hc_re, hc_im); channels=False:
     (pos_re, pos_im, negc_re, negc_im) with htilde(-f) = conj(negc).
     ``uniform=(f0, df)`` with ``f_pos[i] = f0 + i df`` selects the banded
-    uniform-grid kernel, the only branch ported so far; that branch reads
-    only the grid's length, so ``f_pos`` may be given as the length nf.
+    uniform-grid kernel (`fd_mode_sum_uniform`); that branch reads only the
+    grid's length, so ``f_pos`` may be given as the length nf.
+    ``uniform=None`` evaluates the general sorted-grid kernel
+    (`fd_mode_sum`, ``nodes_per_segment`` nodes per trajectory segment) on
+    the ascending positive frequencies ``f_pos`` (nf,), which the batch
+    shares.
     """
-    if uniform is None:
-        raise NotImplementedError(
-            "the general sorted-grid kernel (fd_mode_sum) is ported in a later slice"
-        )
     dev = pro.t_knots.device
     sig = _sigma(table, dev)
     ypr, ypi = pro.y_plus
@@ -191,6 +202,12 @@ def fd_waveform_core(
         pro.t_knots, pro.n_live, pro.phi_phi, pro.phi_r, pro.a_re, pro.a_im,
         table, pro.sel, w1, w2, w1n=w1n, w2n=w2n,
     )
+    if uniform is None:
+        return fd_mode_sum(
+            inp, torch.as_tensor(f_pos, dtype=pro.t_knots.dtype, device=dev),
+            nodes_per_segment=nodes_per_segment, turnover_slots=turnover_slots,
+            negative_slots=negative_slots,
+        )
     f0, dfreq = uniform
     nf = f_pos if isinstance(f_pos, int) else f_pos.shape[-1]
     # caller-supplied offsets are in bins_per_run-sized runs, so the run size
@@ -205,6 +222,19 @@ def fd_waveform_core(
         negative_slots=negative_slots, extra_band_runs=extra_band_runs,
         band_offsets_extra=band_offsets_extra,
         out_dtype=torch.float32 if out_f32 else None,
+    )
+
+
+def knot_frequencies(pro: WaveformPrologue) -> tuple[np.ndarray, np.ndarray]:
+    """(f_phi, f_r) in Hz at lane 0's knots (numpy), from the derivative of
+    the not-a-knot phase splines the FD kernels use."""
+    t = pro.t_knots[:1]
+    two_pi = 2.0 * math.pi
+    sp_pp = fit_cubic_spline(t, pro.phi_phi[:1], bc="not-a-knot")
+    sp_pr = fit_cubic_spline(t, pro.phi_r[:1], bc="not-a-knot")
+    return (
+        (spline_eval(sp_pp, t, deriv=1)[0] / two_pi).cpu().numpy(),
+        (spline_eval(sp_pr, t, deriv=1)[0] / two_pi).cpu().numpy(),
     )
 
 
@@ -223,12 +253,8 @@ def band_offsets_for(
     offsets (k,) int32 are computed once per walker batch, with a margin
     that absorbs the band drift across the batch.
     """
-    t = pro.t_knots[:1]
-    sp_pp = fit_cubic_spline(t, pro.phi_phi[:1], bc="not-a-knot")
-    sp_pr = fit_cubic_spline(t, pro.phi_r[:1], bc="not-a-knot")
-    two_pi = 2.0 * np.pi
-    f_phi0 = float(spline_eval(sp_pp, t[:, :1], deriv=1)[0, 0]) / two_pi
-    f_r0 = float(spline_eval(sp_pr, t[:, :1], deriv=1)[0, 0]) / two_pi
+    fphi, fr = knot_frequencies(pro)
+    f_phi0, f_r0 = float(fphi[0]), float(fr[0])
     sel_idx = pro.sel.idx[0].cpu().numpy()
     m_sel = table.ms[sel_idx].astype(np.float64)
     n_sel = table.ns[sel_idx].astype(np.float64)
@@ -237,6 +263,89 @@ def band_offsets_for(
     margin = int(band_runs * margin_frac)
     g0 = np.floor((f_start - f0) / run_df).astype(np.int32) - margin
     return np.maximum(g0, 0)
+
+
+class FrozenSelection(NamedTuple):
+    """Batch-shared mode-slot configuration for the banded FD fast path.
+
+    Produced once per walker batch by `freeze_mode_selection` from a
+    representative source: the slot -> mode map (``forced_idx``), the shared
+    window offsets and the window geometry. Per-lane eps selection shifts
+    slot identity whenever a marginal mode crosses the eps boundary, so the
+    production configuration freezes both and validates each batch with
+    `coverage_of` (the frozen set must carry >= 1 - eps of each lane's mode
+    power).
+    """
+
+    forced_idx: np.ndarray  # (k_slots,) candidate-table indices
+    band_offsets: np.ndarray  # (k_slots,) window-start runs
+    bins_per_run: int
+    band_runs: int
+
+
+def freeze_mode_selection(
+    pro: WaveformPrologue,
+    table: ModeTable,
+    f0: float,
+    df: float,
+    *,
+    k_slots: int | None = None,
+    bins_per_run: int = 64,
+    band_runs: int | None = None,
+    margin_frac: float = 0.125,
+    drift_frac: float = 0.02,
+) -> FrozenSelection:
+    """Build the batch-shared slot layout from a representative prologue.
+
+    ``pro`` is a `waveform_prologue` with eps selection whose lane 0 is the
+    representative source (its ``sel`` orders live slots by band-start
+    frequency). ``k_slots`` truncates to the leading slots (default: the
+    live count + 2 margin slots); ``band_runs`` defaults to the widest
+    selected band + offset margin + drift headroom, rounded up to a
+    multiple of 64.
+    """
+    mask = pro.sel.mask[0].cpu().numpy()
+    if k_slots is None:
+        k_slots = min(int(mask.sum()) + 2, len(mask))
+    forced = pro.sel.idx[0].cpu().numpy()[:k_slots]
+
+    # band widths (in runs) of the kept slots, at the live knots
+    fphi, fr = knot_frequencies(pro)
+    n_liv = int(pro.n_live[0])
+    ms = table.ms[forced].astype(np.float64)
+    ns = table.ns[forced].astype(np.float64)
+    fk = ms[:, None] * fphi[None, :n_liv] + ns[:, None] * fr[None, :n_liv]
+    width_bins = (fk.max(axis=1) - fk[:, 0]) / df
+    # the run size adapts to the narrowest band: the per-run interpolation
+    # needs >= O(30) runs across a band
+    bins_per_run = int(np.clip(width_bins.min() // 32, 1, bins_per_run))
+    # margins scale with each band's absolute frequency position: across a
+    # batch the band shifts by ~(parameter drift) x f
+    pos_bins = (fk[:, 0] - f0) / df
+    margin_bins = np.maximum(drift_frac * (pos_bins + width_bins), margin_frac * width_bins)
+    if band_runs is None:
+        need_bins = width_bins * (1.0 + drift_frac) + 2.0 * margin_bins
+        band_runs = int(np.ceil(need_bins.max() / bins_per_run / 64.0) * 64)
+
+    g0 = np.floor((pos_bins - margin_bins) / bins_per_run).astype(np.int32)
+    return FrozenSelection(
+        forced_idx=forced,
+        band_offsets=np.maximum(g0, 0),
+        bins_per_run=bins_per_run,
+        band_runs=band_runs,
+    )
+
+
+def coverage_of(frozen: FrozenSelection, power: torch.Tensor) -> torch.Tensor:
+    """Fraction of total mode power the frozen slot set carries.
+
+    ``power``: (..., n_candidates) per-mode power (`modeselect.mode_power`
+    along a lane's own trajectory). Gate batches with
+    ``coverage_of(...) >= 1 - eps`` before trusting the frozen layout across
+    a new posterior region.
+    """
+    idx = torch.as_tensor(np.asarray(frozen.forced_idx), device=power.device).long()
+    return torch.sum(power[..., idx], dim=-1) / torch.sum(power, dim=-1)
 
 
 def default_time_grid(t_years: float, dt: float) -> np.ndarray:
@@ -254,12 +363,18 @@ def default_frequencies(t_years: float, dt: float) -> np.ndarray:
 
 
 class FrozenFDWaveform(torch.nn.Module):
-    """Batch-frozen all-mode FD waveform generator (flat physics).
+    """Batch-frozen all-mode FD waveform generator.
 
     Holds the state a walker batch shares, as registered buffers: the mode
     table sliced to the frozen selection (``lmn``), its family constants,
-    the forced slot indices and the shared window offsets of the main and
-    extra slots. ``forward(p0, e0, theta, phi)`` runs the prologue and the
+    the forced slot indices, the shared window offsets of the main and
+    extra slots and, for the physics above the flat rung, the multipole flux
+    grid's values (``flux_values``, (96, 49, 2) float64) and the frozen
+    table's ghost-padded calibration rows (``rwz_b_rows``, ``rwz_r_rows``).
+    ``flux`` names the trajectory's dissipation model and ``tail`` /
+    ``factorized`` / ``rwz`` the amplitude rung, as in `waveform_prologue`;
+    the production physics is flux="multipole_rwz" with all three.
+    ``forward(p0, e0, theta, phi)`` runs the prologue and the
     banded FD core for the batch and returns the four float32 spectra
     (hp_re, hp_im, hc_re, hc_im), each (B, nf), on the uniform grid
     f = f0 + i df. The buffers, and so the forward pass, live on ``device``:
@@ -285,11 +400,18 @@ class FrozenFDWaveform(torch.nn.Module):
         turnover_slots: int = 2,
         extra_band_runs: int = 64,
         band_offsets_extra=None,
+        flux: str = "pm",
+        tail: bool = False,
+        factorized: bool = False,
+        rwz: bool = False,
+        flux_grid: FluxGrid | None = None,
         device=None,
     ):
         super().__init__()
         dev = resolve_device(device)
         self.table = table
+        self.flux = flux
+        self.tail, self.factorized, self.rwz = bool(tail), bool(factorized), bool(rwz)
         self.f0, self.df, self.nf = float(f0), float(df), int(nf)
         self.t_years = float(t_years)
         self.mass_1, self.mass_2, self.dist = float(mass_1), float(mass_2), float(dist)
@@ -310,12 +432,30 @@ class FrozenFDWaveform(torch.nn.Module):
         self.register_buffer(
             "band_offsets_extra", torch.as_tensor(band_offsets_extra, dtype=torch.int32, device=dev)
         )
+        # the multipole flux grid (None under "pm"): its values move with the
+        # module, its spacing stays on the host
+        grid = flux_model(flux, dev, flux_grid)
+        if not isinstance(grid, FluxGrid):
+            grid = None
+        self._flux_axes = grid[:4] if grid else None
+        self.register_buffer("flux_values", grid.values.to(dev) if grid else None)
+        b_rows, r_rows = rwz_rows_of(table.ls, table.ms, table.ns, dev) if rwz else (None, None)
+        self.register_buffer("rwz_b_rows", b_rows)
+        self.register_buffer("rwz_r_rows", r_rows)
+
+    def flux_grid(self) -> FluxGrid | None:
+        """The module's multipole flux grid on its buffers' device (None
+        under the Peters-Mathews flux)."""
+        return FluxGrid(*self._flux_axes, self.flux_values) if self._flux_axes else None
 
     def forward(self, p0, e0, theta, phi):
         pro = waveform_prologue(
             self.mass_1, self.mass_2, p0, e0, theta, phi, self.dist, 0.0, 0.0,
             t_years=self.t_years, table=self.table, k_max=self.table.num_modes, eps=0.0,
             max_steps=self.max_steps, forced_idx=self.forced_idx, family_c=self.family_c,
+            flux=self.flux, tail=self.tail, factorized=self.factorized, rwz=self.rwz,
+            flux_grid=self.flux_grid(),
+            rwz_rows=(self.rwz_b_rows, self.rwz_r_rows) if self.rwz else None,
             device=self.lmn.device,
         )
         return fd_waveform_core(
@@ -331,7 +471,11 @@ __all__ = [
     "WaveformPrologue",
     "waveform_prologue",
     "fd_waveform_core",
+    "knot_frequencies",
     "band_offsets_for",
+    "FrozenSelection",
+    "freeze_mode_selection",
+    "coverage_of",
     "default_time_grid",
     "default_frequencies",
     "FrozenFDWaveform",

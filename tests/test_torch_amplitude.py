@@ -83,8 +83,10 @@ def test_mode_amplitudes_flat(orbits):
         family_c=torch.from_numpy(t_amp.family_constants(tt)),
     )
     assert torch.equal(cr, br) and torch.equal(ci, bi)
-    with pytest.raises(NotImplementedError):
-        t_amp.mode_amplitudes(torch.from_numpy(p), torch.from_numpy(e), tt, tail=True)
+    # the rwz rung only composes on top of the other two (the rungs
+    # themselves are held against the reference in tests/test_torch_rwz.py)
+    with pytest.raises(ValueError):
+        t_amp.mode_amplitudes(torch.from_numpy(p), torch.from_numpy(e), tt, rwz=True)
 
 
 def test_mode_power_and_selection():

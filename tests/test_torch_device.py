@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from emri_frequencydomainwaveforms_tpu_torch import convert
+from emri_frequencydomainwaveforms_tpu_torch.models import flux as t_flux
 from emri_frequencydomainwaveforms_tpu_torch.models import inspiral as t_insp
 from emri_frequencydomainwaveforms_tpu_torch.models import waveform as t_wf
 from emri_frequencydomainwaveforms_tpu_torch.models.amplitude import default_mode_table
@@ -63,6 +64,10 @@ _SCALAR_CALLS = {
         1e6, 10.0, 12.0, 0.35, 0.7, 0.5, 1.0, 0.0, 0.0, t_years=0.01,
         table=default_mode_table(8, l_max=2), k_max=4, eps=1e-2, max_steps=32, **kw),
     "FrozenFDWaveform": _frozen,
+    "get_mu_at_t": lambda **kw: t_insp.get_mu_at_t(1e6, 9.0, 0.3, 0.01, n_iters=2, max_steps=32, **kw),
+    "build_flux_grid": lambda **kw: t_flux.build_flux_grid(n_u=4, n_e=4, tail=True, **kw).values,
+    "flux_grid_from_numpy": lambda **kw: convert.flux_grid_from_numpy(
+        0.0, 0.1, 0.0, 0.1, np.zeros((4, 4, 2)), **kw).values,
 }
 
 

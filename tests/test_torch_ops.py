@@ -132,6 +132,16 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.convert\n"
         "import emri_frequencydomainwaveforms_tpu_torch.models.waveform\n"
         "import emri_frequencydomainwaveforms_tpu_torch.ops.fd_dense\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.ops.interp2d\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.tail\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.rho\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.rwz_calibration\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models._rwz_calibration_data\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models._rwz_ecc_data\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.amplitude_backends\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.flux\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.inspiral\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.summation_fd\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'emri_frequencydomainwaveforms_tpu'))\n"

@@ -95,8 +95,14 @@ def test_pm_flux_balance_and_rhs(orbits):
     )(jnp.asarray(state), ref)
     assert np.max(np.abs(np.asarray(ref_t) - tangent.numpy())) / np.max(np.abs(np.asarray(ref_t))) < 1e-10
     assert bool(t_flux.stop_condition(torch.tensor([[6.9, 0.4, 0.0, 0.0]]))[0])
-    with pytest.raises(NotImplementedError):
-        t_flux.inspiral_rhs(torch.from_numpy(state), nu, flux="multipole")
+    # the dissipative model is a function of (p, e) (or a flux grid, see
+    # tests/test_torch_rwz.py): doubling the flux doubles (pdot, edot)
+    twice = t_flux.inspiral_rhs(
+        torch.from_numpy(state), torch.tensor(nu, dtype=torch.float64),
+        lambda p_, e_: tuple(2.0 * x for x in t_flux.pn_flux_e_l(p_, e_)),
+    )
+    assert torch.allclose(twice[:, :2], 2.0 * got[:, :2], rtol=1e-14, atol=0.0)
+    assert torch.equal(twice[:, 2:], got[:, 2:])
 
 
 def _fixed_time_rel(t_a, y_a, t_b, y_b, t_fixed):
