@@ -14,11 +14,17 @@ amplitudes), whose flux grid it first builds on the card. On the production
 path it then runs the reference benchmark's accuracy gates: the step budget
 (gate 0), the frozen set's mode-power coverage (gate 1b), the banded kernel
 against the general sorted-grid kernel and the window truncation (gate 1),
-and a plunging source (gate 1c). Last it times the kernel on the dense-pass
-tables all four runs produced, beside its plain version, its byte bound, a
-zero fill of the same output (the practical write floor) and the kernel with
-every slot dead. Every phase raises on failure; nothing falls back to the
-CPU or to the plain version.
+and a plunging source (gate 1c), then the FD/TD Hann mismatch (gate 2)
+against the port's dense time-domain sum. Then it drives the
+parameter-estimation path users run, `cli/emri_pe.py`'s `run_emri_pe` at
+the production settings (1 yr, dt 10 s, downsample 100, rwz physics, kmax 48
+frozen, 32 walkers x 4 temperatures, 3 sampler steps) with the in-memory
+chain backend, and checks the zero residual at the injection, the stored
+chain and one whitened walker batch against the plain dense pass. Last it
+times the kernel on the dense-pass tables the runs produced, beside its
+plain version, its byte bound, a zero fill of the same output (the practical
+write floor) and the kernel with every slot dead. Every phase raises on
+failure; nothing falls back to the CPU or to the plain version.
 
     python3 chip_smoke.py
 
@@ -60,6 +66,24 @@ SOURCE = (1e6, 10.0, 12.0, 0.35, 0.7, 0.5, 1.0, 0.0, 0.0)  # the representative 
 PLUNGING = (1e6, 50.0, 7.6, 0.3, 0.7, 0.5, 1.0, 0.0, 0.0)  # plunges at ~0.03 yr
 RWZ = dict(flux="multipole_rwz", tail=True, factorized=True, rwz=True)
 COVERAGE_CHUNK = 16  # walkers per full-table amplitude evaluation in gate 1b
+GATE2_TPU = (6.55e-5, 6.539e-5)  # FD/TD Hann mismatch (h+, hx), BENCH_r04.json: a TPU run
+# cli/emri_pe.py at PE_VALIDATION.md's production settings, 3 sampler steps;
+# --subset 64 keeps the 128-walker start evaluation at the step's batch size
+PE_ARGS = ("-Tobs 1 -M 1e6 -mu 10 -e0 0.35 -dt 10 -eps 1e-2 -downsample 100 -template fd "
+           "-injectFD 1 -flux multipole_rwz -amp rwz -kmax 48 -nwalkers 32 -ntemps 4 "
+           "-nsteps 3 --seed 2601996 --start-scale 1e-7 --subset 64")
+PE_SNR_TPU = 57.1  # PE_VALIDATION.md, a TPU run
+
+
+T_START = time.perf_counter()
+_PHASE = [T_START]
+
+
+def phase_done(name: str) -> None:
+    """Print the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    print(f"[seconds] {name}: {now - _PHASE[0]:.1f} s", flush=True)
+    _PHASE[0] = now
 
 
 def check(ok: bool, what: str) -> None:
@@ -144,14 +168,19 @@ def bound(cases, groups, r, nf):
 
 
 @contextlib.contextmanager
-def dense_function(summation_fd, fn):
-    """Route the FD core's dense pass through ``fn`` for the duration."""
-    saved = summation_fd.fd_dense_accumulate
-    summation_fd.fd_dense_accumulate = fn
+def patched(module, name, fn):
+    """Replace ``module.name`` by ``fn`` for the duration."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        summation_fd.fd_dense_accumulate = saved
+        setattr(module, name, saved)
+
+
+def dense_function(summation_fd, fn):
+    """Route the FD core's dense pass through ``fn`` for the duration."""
+    return patched(summation_fd, "fd_dense_accumulate", fn)
 
 
 def capturing(fn, seen):
@@ -311,6 +340,30 @@ def drive_path(label, phys, env):
                 tables=tables[0], tables_1=tables_1[0], max_knots=max_knots)
 
 
+def mismatch(a, b) -> float:
+    """1 - |<a, b>| / sqrt(<a, a><b, b>) of two complex numpy vectors."""
+    num = np.abs(np.vdot(a, b))
+    return float(1.0 - num / np.sqrt(np.vdot(a, a).real * np.vdot(b, b).real))
+
+
+class StageTimer:
+    """Wraps functions so each call adds its synchronized host time to a
+    named total (the stage split of one likelihood call)."""
+
+    def __init__(self, torch):
+        self.torch, self.totals = torch, {}
+
+    def wrap(self, name, fn):
+        def run(*a, **k):
+            self.torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t1
+            return out
+        return run
+
+
 def band_edge_mask(wf, pro, tbl, f_at, dfu, edge_runs=2.0):
     """True where ``f_at`` lies within ``edge_runs`` runs of a live mode
     band's start, termination or maximum (lane 0): there the banded kernel's
@@ -342,6 +395,103 @@ def split_rel_l2(banded, general, sub, is_edge):
     return off, on, full
 
 
+def drive_pe(env):
+    """`run_emri_pe` at the production settings, with its checks and times.
+
+    Counts the dense-pass launches of the whole run (duration solve,
+    injection, the walkers' start, 3 sampler steps) and keeps the tables of
+    its first B = 1 call (the injection) and its first batched call (a
+    stretch half-step). Returns them with the launch counts.
+    """
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
+    from emri_frequencydomainwaveforms_tpu_torch.cli import emri_pe
+    from emri_frequencydomainwaveforms_tpu_torch.inference.backends.memory import Backend
+
+    args = emri_pe.build_parser().parse_args(PE_ARGS.split())
+    seen = {}
+
+    def keep_first(groups, *, r, nf):
+        n_b = groups[0].pc.shape[0]
+        key = "tables_1" if n_b == 1 else "tables"
+        seen.setdefault(key, (groups, r, nf))
+        seen[key + "_calls"] = seen.get(key + "_calls", 0) + 1
+        return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
+
+    fd_dense.fd_dense_accumulate.launches = 0
+    with dense_function(summation_fd, keep_first):
+        out = emri_pe.run_emri_pe(args, backend=Backend())
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    n_1, n_b = seen.get("tables_1_calls", 0), seen.get("tables_calls", 0)
+    check(launches > 0 and launches == n_1 + n_b,
+          f"[pe] the PE run launched the fd_dense kernel ({launches} = {n_1} + {n_b})")
+    check(n_1 >= 1 and n_b >= 2 * args.nsteps, f"[pe] B = 1 calls {n_1}, batched calls {n_b}")
+    like, backend, timing = out["likelihood"], out["backend"], out["timing"]
+
+    # the zero residual at the injection, the chain, the acceptance
+    ll_truth = float(like(out["truth"][None])[0])
+    check(abs(ll_truth) < 1e-3, f"[pe] |log L(truth)| {abs(ll_truth):.3e} < 1e-3")
+    check(np.isfinite(out["snr"]), f"[pe] injection SNR {out['snr']} finite")
+    ll = backend.get_log_like()
+    chain = out["chain"]
+    check(ll.shape == (args.nsteps, args.ntemps, args.nwalkers), f"[pe] log_like {ll.shape}")
+    check(chain.shape == (args.nsteps, args.ntemps, args.nwalkers, 1, 6), f"[pe] chain {chain.shape}")
+    check(bool(np.isfinite(ll).all() and (ll > -1e300).all()), "[pe] every stored log L finite")
+    check(bool(np.isfinite(chain).all()), "[pe] chain finite")
+    acc = np.asarray(backend.acceptance_fraction)
+    check(bool(((acc >= 0) & (acc <= 1)).all()), f"[pe] acceptance {acc.mean()} in [0, 1]")
+
+    # one walker batch (a stretch half-step's 64 walkers): whitened
+    # template through the kernel vs through the plain dense pass
+    half = torch.as_tensor(chain[-1, :, : args.nwalkers // 2, 0, :].reshape(-1, 6))
+    w_k = like._channels(half)
+    with dense_function(summation_fd, fd_dense.fd_dense_accumulate_reference):
+        w_p = like._channels(half)
+    torch.cuda.synchronize()
+    rel_w = max(
+        float((torch.linalg.vector_norm(a - b, dim=-1) / torch.linalg.vector_norm(b, dim=-1)).max())
+        for pk, pp in zip(w_k, w_p) for a, b in zip(pk, pp)
+    )
+    check(rel_w <= 1e-5, f"[pe] whitened template kernel vs plain rel L2 {rel_w:.3e} <= 1e-5")
+    del w_k, w_p
+
+    # one 64-walker likelihood call, split by stage
+    timer = StageTimer(torch)
+    with patched(wf, "schwarz_ecc_flux_inspiral",
+                 timer.wrap("trajectory", wf.schwarz_ecc_flux_inspiral)), \
+            patched(wf, "mode_amplitudes", timer.wrap("amplitudes", wf.mode_amplitudes)), \
+            patched(summation_fd, "_level1_uniform_tables",
+                    timer.wrap("level-1", summation_fd._level1_uniform_tables)), \
+            dense_function(summation_fd, timer.wrap("dense", fd_dense.fd_dense_accumulate)):
+        t0 = time.perf_counter()
+        like(half)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    rest = call_s - sum(timer.totals.values())
+    # the sampling wall holds the walkers' start (one evaluation of the
+    # whole ensemble) besides the steps; the step time leaves it out
+    step_s = timing["steps_s"] / args.nsteps
+    acc_mean = float(acc.mean())
+    print(f"[pe] run_emri_pe ({PE_ARGS}): p0 {out['p0']:.6f}, injection SNR {out['snr']:.2f} "
+          f"(the TPU's PE_VALIDATION.md run: {PE_SNR_TPU}), |log L(truth)| {abs(ll_truth):.3e}, "
+          f"stored log L in [{ll.min():.4e}, {ll.max():.4e}], acceptance {acc_mean:.3f}, "
+          f"fd_dense launches {launches} ({n_1} at B = 1, {n_b} batched), whitened template "
+          f"kernel vs plain rel L2 {rel_w:.3e}", flush=True)
+    print(f"[timing pe] duration solve {timing['p0_solve_s']:.2f} s; injection "
+          f"{timing['injection_s'] * 1e3:.1f} ms; one {half.shape[0]}-walker likelihood call "
+          f"{call_s * 1e3:.1f} ms (trajectory {timer.totals['trajectory'] * 1e3:.1f}, amplitudes "
+          f"{timer.totals['amplitudes'] * 1e3:.1f}, level-1 tables "
+          f"{timer.totals['level-1'] * 1e3:.1f}, dense {timer.totals['dense'] * 1e3:.1f}, the rest "
+          f"(Ylm, splines, whitening) {rest * 1e3:.1f}); the walkers' start (one "
+          f"{args.ntemps * args.nwalkers}-walker evaluation) {timing['start_s']:.2f} s; one sampler "
+          f"step {step_s:.2f} s (the {args.nsteps} steps' wall / {args.nsteps}); "
+          f"{timing['evals_per_s']:.2f} posterior evaluations/s "
+          f"(nsteps x ntemps x nwalkers / wall, the wall holding the start as in the CLI); "
+          f"host clock, synchronized; on {card}", flush=True)
+    return dict(tables=seen["tables"], tables_1=seen["tables_1"], launches=n_b, launches_1=n_1)
+
+
 def main() -> None:
     import torch
 
@@ -353,6 +503,7 @@ def main() -> None:
     from emri_frequencydomainwaveforms_tpu_torch.models import waveform as wf
     from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
     from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
+    from emri_frequencydomainwaveforms_tpu_torch.utils import fdutils
     from emri_frequencydomainwaveforms_tpu_torch.utils.ylm import spin_weighted_ylm
 
     dev = torch.device("cuda", 0)
@@ -364,6 +515,7 @@ def main() -> None:
     card = card_line()
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    phase_done("device")
     # ---- phase 2: build ----
     t0 = time.perf_counter()
     lib_path, log = fd_dense.build_kernel()
@@ -372,6 +524,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs) or log.strip()[:200]}",
           flush=True)
 
+    phase_done("build")
     # ---- phase 3: kernel vs plain version on the card ----
     # synthetic tables at the main path's shapes (16 main slots of 256 runs,
     # 2 extra slots of 64 runs, r = 64, B = 128)
@@ -406,6 +559,7 @@ def main() -> None:
           f"max|kernel-plain|/scale {worst:.3e} <= 1e-5, exactly 0 outside every kept band",
           flush=True)
 
+    phase_done("kernel vs plain")
     # ---- phase 4: the flat-physics path at full width ----
     table = amplitude.default_mode_table(30)
     freq = wf.default_frequencies(T_YEARS, DT)
@@ -420,12 +574,13 @@ def main() -> None:
     batch = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (p0s, e0s, ths, phs)]
     env = dict(torch=torch, dev=dev, card=card, wf=wf, fd_dense=fd_dense,
                summation_fd=summation_fd, inspiral=inspiral, amplitude=amplitude,
-               table=table, batch=batch, nf=nf, f0u=f0u, dfu=dfu)
+               table=table, batch=batch, nf=nf, f0u=f0u, dfu=dfu, cases=cases)
     flat = drive_path("flat", {}, env)
     check(flat["max_knots"] <= MAX_STEPS - 4, f"flat max_knots {flat['max_knots']} <= {MAX_STEPS - 4}")
     flat = {k: flat[k] for k in ("launches", "launches_1", "tables", "tables_1")}
     torch.cuda.empty_cache()
 
+    phase_done("flat path")
     # ---- phase 5: the production flux grid, built on the card ----
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -442,6 +597,7 @@ def main() -> None:
           f"in {grid_s:.2f} s: |Edot| min {float(edot.min()):.4e} max {float(edot.max()):.4e}, "
           f"finite, all fluxes negative; on {card}", flush=True)
 
+    phase_done("flux grid")
     # ---- phase 6: the production (rwz) path at full width ----
     rwz = drive_path("rwz", RWZ, env)
     gen, table_k, forced_idx = rwz["gen"], rwz["table_k"], rwz["forced_idx"]
@@ -515,6 +671,31 @@ def main() -> None:
     check(werr < 1e-3, f"window truncation {werr:.3e} < 1e-3")
     del banded_fw, general
 
+    # gate 2: FD/TD Hann mismatch at the full 1-yr configuration, lane 0:
+    # the production-window banded spectrum (the B = 1 run above) against
+    # the dense TD sum, both windowed, as bench.py computes it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp_td, hc_td = (h[0].cpu().numpy() for h in
+                    wf.td_waveform_core(pro_l0, table_k, wf.default_time_grid(T_YEARS, DT)))
+    torch.cuda.synchronize()
+    td_s = time.perf_counter() - t0
+    single = [o[0].double().cpu().numpy() for o in rwz["single"]]
+    hp_fd, hc_fd = wf._assemble_channels(freq, single[0] + 1j * single[1],
+                                         single[2] + 1j * single[3], True)
+    w_hann = np.hanning(len(hp_td))
+    fd_w = fdutils.get_fd_windowed([hp_fd, hc_fd], w_hann)
+    td_w = fdutils.get_fft_td_windowed([hp_td, hc_td], w_hann, DT)
+    pos = freq >= 0
+    mm_hp, mm_hc = (mismatch(a[pos], b[pos]) for a, b in zip(fd_w, td_w))
+    check(np.isfinite(hp_td).all() and np.isfinite(hc_td).all(), "gate 2 TD waveform finite")
+    print(f"[gate2] FD/TD Hann mismatch, lane 0 (rwz, 1 yr, {len(hp_td)} samples): h+ "
+          f"{mm_hp:.4e}, hx {mm_hc:.4e} (< 1e-4); the TPU's record {GATE2_TPU[0]:.3e} / "
+          f"{GATE2_TPU[1]:.4e} (BENCH_r04.json, TPU); TD sum on the card {td_s:.2f} s, "
+          f"{time.perf_counter() - t0:.2f} s with the host windowing; on {card}", flush=True)
+    check(mm_hp < 1e-4 and mm_hc < 1e-4, f"gate 2 mismatch {mm_hp:.3e} / {mm_hc:.3e} < 1e-4")
+    del hp_td, hc_td, hp_fd, hc_fd, fd_w, td_w, single
+
     # gate 1c: a plunging source through the banded path with the turnover
     # slots, against the general kernel
     pro_pl = wf.waveform_prologue(
@@ -542,13 +723,21 @@ def main() -> None:
     del gen
     torch.cuda.empty_cache()
 
-    # ---- phase 7: the kernel on the main paths' own tables ----
+    phase_done("rwz path and gates 0, 1b, 1, 1c, 2")
+    # ---- phase 7: parameter estimation, cli/emri_pe.py at the production settings ----
+    pe = drive_pe(env)
+    torch.cuda.empty_cache()
+
+    phase_done("pe")
+    # ---- phase 8: the kernel on the main paths' own tables ----
     records = []
     for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
         (flat["tables"], "fd_dense_accumulate_batched", 203, flat["launches"], 10),
         (flat["tables_1"], "fd_dense_accumulate", 99, flat["launches_1"], 100),
         (rwz["tables"], "fd_dense_accumulate_batched[rwz]", 203, rwz["launches"], 10),
         (rwz["tables_1"], "fd_dense_accumulate[rwz]", 99, rwz["launches_1"], 100),
+        (pe["tables"], "fd_dense_accumulate_batched[pe]", 203, pe["launches"], 10),
+        (pe["tables_1"], "fd_dense_accumulate[pe]", 99, pe["launches_1"], 100),
     ):
         n_b = groups[0].pc.shape[0]
         err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")
@@ -575,13 +764,15 @@ def main() -> None:
             "replaces": f"{PALLAS}:{pallas_line}", "launches": n_launched,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "zero_fill_ms": zero_fill_ms,
-            "device_ms": kernel_dev_ms, "tables": "rwz" if name.endswith("[rwz]") else "flat",
+            "device_ms": kernel_dev_ms, "tables": name.split("[")[1][:-1] if "[" in name else "flat",
         })
         if n_b == BATCH:
             records[-1]["skeleton_ms"] = skeleton_ms
         del buf
         torch.cuda.empty_cache()
 
+    phase_done("kernel records")
+    print(f"[seconds] whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

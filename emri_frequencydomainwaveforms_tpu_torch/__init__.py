@@ -27,7 +27,10 @@ Ported so far: the batched FD waveform path from `waveform_prologue` through
 `fd_waveform_core`, with the flat physics (Peters-Mathews flux, plain
 multipole amplitudes) and the production physics (the multipole flux grid
 with tail, factorized and rwz amplitudes), on the banded uniform-grid kernel
-and on the general sorted-grid kernel that checks it.
+and on the general sorted-grid kernel that checks it; the TD path and the
+waveform facades; and the parameter-estimation loop (``lisa/``,
+``inference/``, ``cli/emri_pe.py``: whitened likelihood, tempered
+stretch-move sampler, chain backends).
 """
 
 __version__ = "0.1.0"

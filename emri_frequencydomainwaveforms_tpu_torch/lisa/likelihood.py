@@ -1,0 +1,195 @@
+"""Noise-weighted likelihood over frequency-domain channels, per walker batch.
+
+Counterpart of ``emri_frequencydomainwaveforms_tpu.lisa.likelihood``
+(`df_vector`, `Likelihood`): the PSD comes from ``noise_fn(freqs)``, the
+spacing is the right-rule df vector, the injection is pre-whitened by
+sqrt(df / PSD), and ``log L = -1/2 * 4 * sum |d - h|^2`` over the whitened
+channels.
+
+The template contract is batched where the reference vmaps a single-walker
+template: ``template(params_full)`` takes (n, ndim_full) float64 parameters
+(already transformed) and returns ``nchannels`` pairs ``(re, im)`` of (n, nf)
+spectra on ``f_arr``, in float32 or float64. The spectra are cast to float64
+before whitening, and every reduction runs in float64 on the likelihood's
+device. ``subset`` evaluates the walkers in chunks of that many (each
+walker's value does not depend on the chunk it is in).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+
+def df_vector(f_arr):
+    """Right-rule spacings with df[0] = df[1] (numpy)."""
+    f_arr = np.asarray(f_arr)
+    if f_arr.shape[0] < 2:
+        return np.ones_like(f_arr)
+    d = np.diff(f_arr)
+    return np.concatenate([d[:1], d])
+
+
+class Likelihood:
+    """Whitened-residual log-likelihood over FD channels.
+
+    Args:
+      template_model: ``(n, ndim_full) -> [(re, im), ...]`` of (n, nf) each,
+        evaluated on ``f_arr`` (see the module docstring).
+      nchannels: number of data channels (2 for [h+, hx]).
+      f_arr: (nf,) positive frequencies of the analysis grid.
+      parameter_transforms: a `TransformContainer` applied to the sampled
+        parameters before the template.
+      subset: optional chunk size for walker micro-batching.
+      device: where the whitened data live and the reductions run; default
+        the current CUDA device (raises without one: pass ``device="cpu"``).
+    """
+
+    def __init__(
+        self,
+        template_model: Callable,
+        nchannels: int,
+        *,
+        f_arr,
+        dt: float | None = None,
+        parameter_transforms=None,
+        subset: int | None = None,
+        vectorized: bool = True,
+        separate_d_h: bool = False,
+        use_gpu=None,
+        device=None,
+    ):
+        del dt, vectorized, separate_d_h, use_gpu
+        self.device = resolve_device(device, f_arr)
+        self.template_model = template_model
+        self.nchannels = nchannels
+        self.f_np = (f_arr.detach().cpu().numpy() if isinstance(f_arr, torch.Tensor)
+                     else np.asarray(f_arr, dtype=np.float64))
+        self.f_arr = torch.as_tensor(self.f_np, dtype=torch.float64, device=self.device)
+        self.transform = parameter_transforms
+        self.subset = subset
+        self.noise_factor = None
+        self.injection_whitened = None
+        self._last_params = None
+
+    # ---- injection ----
+    def inject_signal(
+        self,
+        data_stream: Sequence,
+        noise_fn=None,
+        noise_args=(),
+        noise_kwargs=None,
+        add_noise: bool = False,
+        seed: int | None = None,
+    ):
+        """Store the whitened injection and the whitening vector.
+
+        ``data_stream``: ``nchannels`` complex numpy arrays on ``f_arr``.
+        The PSD is evaluated on the host in float64 (``noise_fn`` of the
+        numpy frequencies, default `get_sensitivity`); bins where it is not
+        finite and positive get zero weight. ``add_noise`` adds Gaussian
+        noise of that PSD, drawn with ``numpy.random.default_rng(seed)``.
+        """
+        from .sensitivity import get_sensitivity
+
+        noise_kwargs = noise_kwargs or {}
+        noise_fn = noise_fn or get_sensitivity
+        f_np = self.f_np
+        psd = np.asarray(noise_fn(f_np, *noise_args, **noise_kwargs), dtype=np.float64)
+        dfv = df_vector(f_np)
+        # non-finite PSD values would silently zero the whitening and fake a
+        # perfect likelihood
+        bad = ~np.isfinite(psd) | (psd <= 0)
+        if bad.all():
+            raise ValueError("noise PSD non-finite/non-positive on every bin")
+        psd = np.where(bad, np.inf, psd)
+        wf = np.sqrt(dfv / psd)
+        self.noise_factor = torch.as_tensor(wf, device=self.device)
+
+        chans = [np.asarray(c) for c in data_stream]
+        if add_noise:
+            rng = np.random.default_rng(seed)
+            for i, c in enumerate(chans):
+                sigma = np.sqrt(psd / (4.0 * dfv))
+                noise = sigma * (rng.standard_normal(c.shape)
+                                 + 1j * rng.standard_normal(c.shape)) / np.sqrt(2.0)
+                chans[i] = c + noise
+        self.injection_whitened = [
+            (torch.as_tensor(c.real * wf, device=self.device),
+             torch.as_tensor(c.imag * wf, device=self.device))
+            for c in chans
+        ]
+
+    # ---- evaluation ----
+    def _channels(self, params: torch.Tensor):
+        """Whitened template channels [(re, im), ...], (n, nf) float64 each."""
+        full = self.transform.both_transforms(params) if self.transform is not None else params
+        wf = self.noise_factor
+        out = []
+        for re, im in self.template_model(full):
+            out.append((re.to(device=self.device, dtype=torch.float64) * wf,
+                        im.to(device=self.device, dtype=torch.float64) * wf))
+        return out
+
+    def _chunks(self, params: torch.Tensor):
+        n = params.shape[0]
+        step = n if self.subset is None else max(int(self.subset), 1)
+        return [params[i:i + step] for i in range(0, n, step)]
+
+    def _ll(self, params: torch.Tensor) -> torch.Tensor:
+        ll = torch.zeros((params.shape[0],), dtype=torch.float64, device=self.device)
+        for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, self._channels(params)):
+            r_re = d_re - h_re
+            r_im = d_im - h_im
+            ll = ll + torch.sum(r_re * r_re + r_im * r_im, dim=-1)
+        return -2.0 * ll  # -1/2 * 4 * sum |d - h|^2
+
+    def _dh(self, params: torch.Tensor):
+        dh = torch.zeros((params.shape[0],), dtype=torch.float64, device=self.device)
+        hh = torch.zeros_like(dh)
+        for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, self._channels(params)):
+            dh = dh + torch.sum(d_re * h_re + d_im * h_im, dim=-1)
+            hh = hh + torch.sum(h_re * h_re + h_im * h_im, dim=-1)
+        return 4.0 * dh, 4.0 * hh
+
+    def _as_params(self, params) -> torch.Tensor:
+        p = torch.as_tensor(params, dtype=torch.float64)
+        return p.reshape(1, -1) if p.dim() == 1 else p
+
+    def get_ll(self, params, **kwargs):
+        return self(params, **kwargs)
+
+    def __call__(self, params, **waveform_kwargs) -> torch.Tensor:
+        """log L of each row of ``params`` (n, ndim): (n,) float64 on the
+        likelihood's device."""
+        del waveform_kwargs  # fixed in the template
+        if self.injection_whitened is None:
+            raise RuntimeError("call inject_signal first")
+        params = self._as_params(params)
+        self._last_params = params
+        return torch.cat([self._ll(p) for p in self._chunks(params)])
+
+    def d_h_h_h(self, params):
+        """Matched-filter components per walker: (<d|h>, <h|h>), each (n,).
+        The whitened vectors absorb sqrt(df/PSD), so <a|b> = 4 sum Re[a* b]."""
+        if self.injection_whitened is None:
+            raise RuntimeError("call inject_signal first")
+        parts = [self._dh(p) for p in self._chunks(self._as_params(params))]
+        return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+
+    @property
+    def d_h(self):
+        """<d|h> of the last ``__call__`` batch."""
+        return self.d_h_h_h(self._last_params)[0]
+
+    @property
+    def h_h(self):
+        """<h|h> of the last ``__call__`` batch."""
+        return self.d_h_h_h(self._last_params)[1]
+
+
+__all__ = ["Likelihood", "df_vector"]

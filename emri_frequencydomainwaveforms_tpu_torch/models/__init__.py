@@ -1,2 +1,2 @@
-"""Trajectory, amplitudes, mode selection, FD summation and the batched
-waveform module."""
+"""Trajectory, amplitudes, mode selection, FD and TD summation, the batched
+waveform module and the waveform facades."""

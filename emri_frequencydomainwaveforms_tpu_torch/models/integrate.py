@@ -82,7 +82,11 @@ def integrate_inspiral(
     h = torch.full((n_b,), h0, dtype=dtype, device=dev)
     k0 = rhs(y0)  # FSAL carry: rhs(y)
     count = torch.ones((n_b,), dtype=torch.int32, device=dev)  # knot 0 = IC
-    done = torch.zeros((n_b,), dtype=torch.bool, device=dev)
+    # a lane whose rate is not finite at its initial state (below the
+    # separatrix, e outside [0, 1)) can accept no step: it keeps its one
+    # knot whether it is stopped now or after max_iters rejections, and
+    # stopping it now keeps it from holding the whole batch in the loop
+    done = ~torch.isfinite(k0).all(dim=-1)
     iters = torch.zeros((n_b,), dtype=torch.int32, device=dev)
 
     def one_step(y, h, k0):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -82,4 +83,19 @@ def select_modes(
     return SelectedModes(idx=idx, mask=mask, power=p_top)
 
 
-__all__ = ["SelectedModes", "mode_power", "top_k_stable", "select_modes"]
+def table_indices_for(table, requested) -> np.ndarray:
+    """Candidate-table indices of explicit ``mode_selection`` (l, m, n)
+    entries (host-side lookup; KeyError for a mode not in the table)."""
+    lookup = {
+        (int(l), int(m), int(n)): i
+        for i, (l, m, n) in enumerate(zip(table.ls, table.ms, table.ns))
+    }
+    out = []
+    for lmn in requested:
+        if lmn not in lookup:
+            raise KeyError(f"mode {lmn} not in candidate table")
+        out.append(lookup[lmn])
+    return np.asarray(out, dtype=np.int32)
+
+
+__all__ = ["SelectedModes", "mode_power", "top_k_stable", "select_modes", "table_indices_for"]

@@ -1,13 +1,18 @@
-"""Batched FD waveform generation: prologue, FD cores, frozen module.
+"""Batched waveform generation: prologue, FD and TD cores, facades.
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.models.waveform``:
 `waveform_prologue` (trajectory -> amplitudes -> Ylm -> mode selection),
 `fd_waveform_core` (the banded uniform-grid branch and the general
-sorted-grid branch), `band_offsets_for`, `freeze_mode_selection` /
-`coverage_of`, `default_time_grid` / `default_frequencies`, and
-`FrozenFDWaveform`, the ``nn.Module`` that holds a walker batch's frozen
-slot layout and maps (p0, e0, theta, phi) to the four float32 spectra — the
-counterpart of the reference benchmark's ``gen`` closure.
+sorted-grid branch), `fd_scalar_on_grid` / `fd_channels_on_grid` (any signed
+grid), `td_waveform_core` (the dense time-domain sum), `band_offsets_for`,
+`freeze_mode_selection` / `coverage_of`, `default_time_grid` /
+`default_frequencies`, the detector-frame helpers, the user-facing facades
+`FastSchwarzschildEccentricFlux` and `GenerateEMRIWaveform` (numpy complex
+out, as the reference's), and `FrozenFDWaveform`, the ``nn.Module`` that
+holds a walker batch's frozen slot layout and maps (p0, e0, theta, phi) to
+the four float32 spectra — the counterpart of the reference benchmark's
+``gen`` closure. The detector-frame angle convention is the reference's
+(see its module docstring).
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ from ..ops.cubic_spline import fit_cubic_spline, spline_eval
 from ..utils.constants import Gpc, MRSUN_SI, YRSID_SI
 from ..utils.device import resolve_device
 from ..utils.ylm import spin_weighted_ylm
-from .amplitude import ModeTable, family_constants, mode_amplitudes
+from .amplitude import ModeTable, default_mode_table, family_constants, mode_amplitudes
 from .flux import FluxGrid
 from .geodesic import fundamental_frequencies_seconds
 from .inspiral import _batch_f64, flux_model, schwarz_ecc_flux_inspiral
-from .modeselect import SelectedModes, mode_power, select_modes
+from .modeselect import SelectedModes, mode_power, select_modes, table_indices_for
 from .rwz_calibration import rwz_rows as rwz_rows_of
 from .summation_fd import fd_mode_sum, fd_mode_sum_uniform, prepare_fd_inputs
+from .summation_td import td_mode_sum
 
 
 class WaveformPrologue(NamedTuple):
@@ -225,6 +231,103 @@ def fd_waveform_core(
     )
 
 
+def _detect_uniform_grid(freq: np.ndarray):
+    """Host-side grid classification for the banded uniform kernel.
+
+    Returns ``(f_pos, f0, df, symmetric)`` when the positive part of ``freq``
+    is uniformly spaced and the negative part (if any) mirrors it (the
+    default odd fftshift grid and ``[::k]`` downsamples of its positive
+    half); None for irregular grids (the general sorted-grid kernel).
+    """
+    freq = np.asarray(freq)
+    pos = freq[freq > 0]
+    if len(pos) < 2 or np.any(np.diff(pos) <= 0):
+        return None
+    df = pos[1] - pos[0]
+    if not np.allclose(np.diff(pos), df, rtol=1e-9):
+        return None
+    neg = freq[freq < 0]
+    symmetric = len(neg) > 0
+    if symmetric and not np.allclose(neg[::-1], -pos[: len(neg)], rtol=1e-12):
+        return None
+    if symmetric and len(neg) != len(pos):
+        return None
+    return pos, float(pos[0]), float(df), symmetric
+
+
+def _assemble_scalar(freq, pos_v, negc_v, symmetric):
+    """htilde on the signed grid ``freq`` (numpy complex) from the positive
+    branch ``pos_v`` and the conjugated negative branch ``negc_v``."""
+    out = np.zeros(freq.shape, dtype=np.complex128)
+    out[freq > 0] = pos_v
+    if symmetric:
+        out[freq < 0] = np.conj(negc_v)[::-1]
+    return out
+
+
+def _assemble_channels(freq, hp_pos, hc_pos, symmetric):
+    """[h+~, hx~] on the signed grid ``freq`` (numpy complex); reality fills
+    the negative frequencies of a symmetric grid."""
+    hp = np.zeros(freq.shape, dtype=np.complex128)
+    hc = np.zeros(freq.shape, dtype=np.complex128)
+    hp[freq > 0] = hp_pos
+    hc[freq > 0] = hc_pos
+    if symmetric:
+        hp[freq < 0] = np.conj(hp_pos)[::-1]
+        hc[freq < 0] = np.conj(hc_pos)[::-1]
+    return hp, hc
+
+
+def _on_abs_grid(pro, table, freq, channels, turnover_slots, negative_slots):
+    """The general kernel at |f| of a signed grid (sorted ascending for the
+    kernel, then put back in ``freq``'s order): four (B, N) outputs."""
+    freq = torch.as_tensor(freq, dtype=torch.float64, device=pro.t_knots.device)
+    f_abs = torch.clamp_min(torch.abs(freq), 1e-300)
+    order = torch.argsort(f_abs, stable=True)
+    inv = torch.argsort(order, stable=True)
+    outs = fd_waveform_core(
+        pro, table, f_abs[order], channels=channels,
+        turnover_slots=turnover_slots, negative_slots=negative_slots,
+    )
+    return freq, [o[:, inv] for o in outs]
+
+
+def fd_scalar_on_grid(pro: WaveformPrologue, table: ModeTable, freq,
+                      turnover_slots: int = 0, negative_slots: int = 0):
+    """Scalar htilde = FT(h+ - i hx) on an arbitrary signed frequency grid.
+
+    One general-kernel pass at |f| gives both branches: htilde(f>0) = pos,
+    htilde(f<0) = conj(negc), htilde(0) = 0. Returns float64 (re, im), each
+    (B, N).
+    """
+    freq, (pr, pi, nr, ni) = _on_abs_grid(pro, table, freq, False, turnover_slots,
+                                          negative_slots)
+    pos = freq > 0
+    neg = freq < 0
+    zero = torch.zeros((), dtype=pr.dtype, device=pr.device)
+    re = torch.where(pos, pr, torch.where(neg, nr, zero))
+    im = torch.where(pos, pi, torch.where(neg, -ni, zero))
+    return re, im
+
+
+def fd_channels_on_grid(pro: WaveformPrologue, table: ModeTable, freq,
+                        turnover_slots: int = 0, negative_slots: int = 0):
+    """[h+~, hx~] on an arbitrary signed grid (reality fills f < 0 bins).
+
+    Returns ((hp_re, hp_im), (hc_re, hc_im)), each (B, N) float64.
+    """
+    freq, (hpr, hpi, hcr, hci) = _on_abs_grid(pro, table, freq, True, turnover_slots,
+                                              negative_slots)
+    neg = freq < 0
+    zero = freq == 0
+    sgn = torch.where(neg, -1.0, 1.0).to(hpr.dtype)
+    z = torch.zeros((), dtype=hpr.dtype, device=hpr.device)
+    return (
+        (torch.where(zero, z, hpr), torch.where(zero, z, hpi * sgn)),
+        (torch.where(zero, z, hcr), torch.where(zero, z, hci * sgn)),
+    )
+
+
 def knot_frequencies(pro: WaveformPrologue) -> tuple[np.ndarray, np.ndarray]:
     """(f_phi, f_r) in Hz at lane 0's knots (numpy), from the derivative of
     the not-a-knot phase splines the FD kernels use."""
@@ -348,6 +451,19 @@ def coverage_of(frozen: FrozenSelection, power: torch.Tensor) -> torch.Tensor:
     return torch.sum(power[..., idx], dim=-1) / torch.sum(power, dim=-1)
 
 
+def td_waveform_core(pro: WaveformPrologue, table: ModeTable, t_grid) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense TD waveforms (h_plus, h_cross), each (B, N), on ``t_grid``
+    (N,) seconds, shared by the batch."""
+    dev = pro.t_knots.device
+    t_grid = torch.as_tensor(t_grid, dtype=pro.t_knots.dtype, device=dev)
+    hp, hc = td_mode_sum(
+        pro.t_knots, pro.phi_phi, pro.phi_r, pro.a_re, pro.a_im, table, pro.sel,
+        pro.y_plus, pro.y_minus, t_grid, pro.t_end,
+    )
+    d = pro.dist_factor[:, None]
+    return hp * d, hc * d
+
+
 def default_time_grid(t_years: float, dt: float) -> np.ndarray:
     """Odd-length dense TD grid (reference ``odd_len=True`` semantics)."""
     n = int(t_years * YRSID_SI / dt)
@@ -360,6 +476,238 @@ def default_frequencies(t_years: float, dt: float) -> np.ndarray:
     """fftshift(fftfreq(N, dt)) of the odd default grid."""
     n = default_time_grid(t_years, dt).shape[0]
     return np.fft.fftshift(np.fft.fftfreq(n, dt))
+
+
+class FastSchwarzschildEccentricFlux:
+    """Source-frame generator facade (the reference's call contract).
+
+    One source per call; returns numpy complex arrays. ``inspiral_kwargs``
+    takes ``max_steps`` (the trajectory's knot budget; only the adaptive
+    DP5 stepper is ported), ``amplitude_kwargs`` the rungs ``tail``,
+    ``factorized`` and ``rwz`` (all on by default: the production physics),
+    ``sum_kwargs`` ``output_type`` ("td" or "fd"; the grids are the odd
+    ``default_time_grid`` / ``default_frequencies``), ``turnover_slots``
+    (default 2 for FD output),
+    ``negative_slots`` and ``flux`` (default "multipole_rwz"). ``device``
+    defaults to the current CUDA device (raises without one: pass
+    ``device="cpu"``). After an FD call ``.frequency`` holds the grid.
+    """
+
+    def __init__(
+        self,
+        inspiral_kwargs=None,
+        amplitude_kwargs=None,
+        Ylm_kwargs=None,
+        sum_kwargs=None,
+        use_gpu=None,
+        n_max: int = 30,
+        l_max: int = 6,
+        k_max: int = 64,
+        device=None,
+    ):
+        del Ylm_kwargs, use_gpu
+        inspiral_kwargs = inspiral_kwargs or {}
+        amplitude_kwargs = amplitude_kwargs or {}
+        sum_kwargs = sum_kwargs or {}
+        method = inspiral_kwargs.get("method", "dp5")
+        if method != "dp5":
+            raise NotImplementedError(
+                f"trajectory method {method!r}: only 'dp5' is ported (the JAX package's "
+                "models/trajectory_quad.py has 'quad')"
+            )
+        self.device = resolve_device(device)
+        self.traj_max_steps = int(inspiral_kwargs.get("max_steps", 512))
+        self.tail = bool(amplitude_kwargs.get("tail", True))
+        self.factorized = bool(amplitude_kwargs.get("factorized", True))
+        self.rwz = bool(amplitude_kwargs.get("rwz", True))
+        self.output_type = sum_kwargs.get("output_type", "td")
+        default_ts = 2 if self.output_type == "fd" else 0
+        self.turnover_slots = int(sum_kwargs.get("turnover_slots", default_ts))
+        self.negative_slots = int(sum_kwargs.get("negative_slots", 0))
+        self.flux = sum_kwargs.get("flux", "multipole_rwz")
+        self.table = default_mode_table(n_max, l_max=l_max)
+        self.k_max = k_max
+        self.frequency = None
+
+    def __call__(
+        self,
+        M,
+        mu,
+        p0,
+        e0,
+        theta,
+        phi,
+        *,
+        dist=1.0,
+        T=1.0,
+        dt=10.0,
+        eps=1e-5,
+        mode_selection=None,
+        f_arr=None,
+        mask_positive=False,
+        Phi_phi0=0.0,
+        Phi_r0=0.0,
+        return_channels=False,
+    ):
+        forced = (
+            table_indices_for(self.table, mode_selection) if mode_selection is not None else None
+        )
+        pro = waveform_prologue(
+            M, mu, p0, e0, theta, phi, dist, Phi_phi0, Phi_r0,
+            t_years=float(T), table=self.table,
+            k_max=len(forced) if forced is not None else self.k_max,
+            eps=eps, forced_idx=forced, flux=self.flux, tail=self.tail,
+            factorized=self.factorized, rwz=self.rwz, max_steps=self.traj_max_steps,
+            device=self.device,
+        )
+
+        def host(x):
+            return x[0].cpu().numpy()
+
+        if self.output_type == "td":
+            hp, hc = td_waveform_core(pro, self.table, default_time_grid(float(T), float(dt)))
+            if return_channels:
+                return [host(hp), host(hc)]
+            return host(hp) - 1j * host(hc)
+        # FD on the default symmetric grid or an arbitrary user f_arr
+        freq = default_frequencies(float(T), float(dt)) if f_arr is None else np.asarray(f_arr)
+        self.frequency = freq
+        uni = _detect_uniform_grid(freq)
+        keep = freq >= 0
+        if uni is not None:
+            f_pos_np, f0, dfreq, symmetric = uni
+            o1r, o1i, o2r, o2i = (host(o) for o in fd_waveform_core(
+                pro, self.table, len(f_pos_np), channels=return_channels, uniform=(f0, dfreq),
+                turnover_slots=self.turnover_slots, negative_slots=self.negative_slots,
+            ))
+            if return_channels:
+                hp, hc = _assemble_channels(freq, o1r + 1j * o1i, o2r + 1j * o2i, symmetric)
+                return [hp[keep], hc[keep]] if mask_positive else [hp, hc]
+            out = _assemble_scalar(freq, o1r + 1j * o1i, o2r + 1j * o2i, symmetric)
+            return out[keep] if mask_positive else out
+        if return_channels:
+            (hpr, hpi), (hcr, hci) = fd_channels_on_grid(
+                pro, self.table, freq, turnover_slots=self.turnover_slots,
+                negative_slots=self.negative_slots,
+            )
+            hp = host(hpr) + 1j * host(hpi)
+            hc = host(hcr) + 1j * host(hci)
+            return [hp[keep], hc[keep]] if mask_positive else [hp, hc]
+        re, im = fd_scalar_on_grid(
+            pro, self.table, freq, turnover_slots=self.turnover_slots,
+            negative_slots=self.negative_slots,
+        )
+        out = host(re) + 1j * host(im)
+        return out[keep] if mask_positive else out
+
+
+def detector_frame_angles(qS, phiS, qK, phiK):
+    """(theta, phi, psi): source-frame viewing angles and the polarization
+    rotation, for scalars or (B,) tensors (float64, on the first tensor's
+    device, else the CPU)."""
+    dev = next((x.device for x in (qS, phiS, qK, phiK) if isinstance(x, torch.Tensor)), None)
+    qS, phiS, qK, phiK = torch.broadcast_tensors(
+        *(torch.as_tensor(x, dtype=torch.float64, device=dev) for x in (qS, phiS, qK, phiK))
+    )
+
+    def vec(x, y, z):
+        return torch.stack(torch.broadcast_tensors(x, y, z), dim=-1)
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1)
+
+    def unit(a):
+        return a / torch.clamp_min(torch.linalg.vector_norm(a, dim=-1, keepdim=True), 1e-12)
+
+    s_r = vec(torch.sin(qS) * torch.cos(phiS), torch.sin(qS) * torch.sin(phiS), torch.cos(qS))
+    lhat = vec(torch.sin(qK) * torch.cos(phiK), torch.sin(qK) * torch.sin(phiK), torch.cos(qK))
+    khat = -s_r  # propagation: source -> SSB
+    theta = torch.arccos(torch.clamp(-dot(khat, lhat), -1.0, 1.0))
+
+    # source-frame basis: z = Lhat, x = projection of the SSB z onto the plane
+    zero, one = torch.zeros_like(qS), torch.ones_like(qS)
+    zhat = vec(zero, zero, one)
+    xs = zhat - dot(zhat, lhat)[..., None] * lhat
+    xs_norm = torch.linalg.vector_norm(xs, dim=-1, keepdim=True)
+    # degenerate when L || z: fall back to the SSB x-axis
+    xs = torch.where(xs_norm > 1e-12, xs / torch.clamp_min(xs_norm, 1e-12), vec(one, zero, zero))
+    ys = torch.linalg.cross(lhat, xs, dim=-1)
+    view = s_r  # toward the observer, SSB coordinates
+    phi = torch.arctan2(dot(view, ys), dot(view, xs))
+
+    # polarization: source-frame transverse basis at the viewing point
+    e_th_src = -unit(torch.linalg.cross(view, torch.linalg.cross(lhat, view, dim=-1), dim=-1))
+    e_th_ssb = vec(torch.cos(qS) * torch.cos(phiS), torch.cos(qS) * torch.sin(phiS), -torch.sin(qS))
+    e_ph_ssb = vec(-torch.sin(phiS), torch.cos(phiS), zero)
+    psi = torch.arctan2(dot(e_th_src, e_ph_ssb), dot(e_th_src, e_th_ssb))
+    return theta, phi, psi
+
+
+def rotate_polarizations(hp, hc, psi):
+    """[h+, hx] rotated by 2 psi: a tensor psi, or a float psi for pairs of
+    any array type."""
+    if isinstance(psi, torch.Tensor):
+        c2, s2 = torch.cos(2.0 * psi), torch.sin(2.0 * psi)
+    else:
+        c2, s2 = math.cos(2.0 * psi), math.sin(2.0 * psi)
+    return hp * c2 - hc * s2, hp * s2 + hc * c2
+
+
+class GenerateEMRIWaveform:
+    """Detector-frame 14-parameter facade: ``(M, mu, a, p0, e0, x0, dist,
+    qS, phiS, qK, phiK, Phi_phi0, Phi_theta0, Phi_r0)`` -> [h+, hx] numpy
+    complex arrays (``return_list``) or h+ - i hx. Keyword arguments as for
+    `FastSchwarzschildEccentricFlux`."""
+
+    def __init__(
+        self,
+        waveform_class: str = "FastSchwarzschildEccentricFlux",
+        sum_kwargs=None,
+        amplitude_kwargs=None,
+        inspiral_kwargs=None,
+        return_list: bool = False,
+        use_gpu=None,
+        frame: str = "detector",
+        n_max: int = 30,
+        l_max: int = 6,
+        k_max: int = 64,
+        device=None,
+    ):
+        if waveform_class != "FastSchwarzschildEccentricFlux":
+            raise NotImplementedError(waveform_class)
+        self.waveform_generator = FastSchwarzschildEccentricFlux(
+            sum_kwargs=sum_kwargs, amplitude_kwargs=amplitude_kwargs,
+            inspiral_kwargs=inspiral_kwargs, n_max=n_max, l_max=l_max, k_max=k_max,
+            device=device,
+        )
+        self.return_list = return_list
+        self.frame = frame
+        # the reference exposes .waveform_generator.create_waveform.frequency
+        self.waveform_generator.create_waveform = self.waveform_generator
+
+    @property
+    def frequency(self):
+        return self.waveform_generator.frequency
+
+    def __call__(
+        self, M, mu, a, p0, e0, x0, dist, qS, phiS, qK, phiK, Phi_phi0, Phi_theta0, Phi_r0,
+        *, T=1.0, dt=10.0, eps=1e-5, mode_selection=None, f_arr=None, mask_positive=False,
+    ):
+        del a, x0, Phi_theta0
+        if self.frame == "source":
+            theta, phi, psi = float(qS), float(phiS), 0.0
+        else:
+            theta, phi, psi = (float(x) for x in detector_frame_angles(qS, phiS, qK, phiK))
+        hp, hc = self.waveform_generator(
+            M, mu, p0, e0, theta, phi, dist=dist, T=T, dt=dt, eps=eps,
+            mode_selection=mode_selection, f_arr=f_arr, mask_positive=mask_positive,
+            Phi_phi0=Phi_phi0, Phi_r0=Phi_r0, return_channels=True,
+        )
+        # the same real rotation of the [h+, hx] pair per sample or bin
+        hp2, hc2 = rotate_polarizations(hp, hc, psi)
+        if self.return_list:
+            return [hp2, hc2]
+        return hp2 - 1j * hc2
 
 
 class FrozenFDWaveform(torch.nn.Module):
@@ -471,6 +819,9 @@ __all__ = [
     "WaveformPrologue",
     "waveform_prologue",
     "fd_waveform_core",
+    "fd_scalar_on_grid",
+    "fd_channels_on_grid",
+    "td_waveform_core",
     "knot_frequencies",
     "band_offsets_for",
     "FrozenSelection",
@@ -478,5 +829,9 @@ __all__ = [
     "coverage_of",
     "default_time_grid",
     "default_frequencies",
+    "FastSchwarzschildEccentricFlux",
+    "GenerateEMRIWaveform",
+    "detector_frame_angles",
+    "rotate_polarizations",
     "FrozenFDWaveform",
 ]

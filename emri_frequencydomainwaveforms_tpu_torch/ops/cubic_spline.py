@@ -127,4 +127,20 @@ def spline_eval(sp: CubicSplineCoeffs, xq: torch.Tensor, deriv: int = 0) -> torc
     raise ValueError("deriv must be 0, 1, 2 or 3")
 
 
-__all__ = ["CubicSplineCoeffs", "fit_cubic_spline", "spline_eval"]
+def spline_eval_at_segments(
+    sp: CubicSplineCoeffs, j: torch.Tensor, xq: torch.Tensor, deriv: int = 0
+) -> torch.Tensor:
+    """Evaluate a batch of splines (``sp.x`` (B, n), ``sp.c`` (B, n-1, 4)) at
+    ``xq`` (B, m) with precomputed segment indices ``j`` (B, m) (skips the
+    search). Returns (B, m)."""
+    dx = xq - torch.gather(sp.x, -1, j)
+    cj = torch.gather(sp.c, -2, j.unsqueeze(-1).expand(j.shape + (4,)))
+    c0, c1, c2, c3 = cj[..., 0], cj[..., 1], cj[..., 2], cj[..., 3]
+    if deriv == 0:
+        return c0 + dx * (c1 + dx * (c2 + dx * c3))
+    if deriv == 1:
+        return c1 + dx * (2.0 * c2 + 3.0 * dx * c3)
+    return 2.0 * c2 + 6.0 * dx * c3
+
+
+__all__ = ["CubicSplineCoeffs", "fit_cubic_spline", "spline_eval", "spline_eval_at_segments"]

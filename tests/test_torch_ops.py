@@ -7,6 +7,7 @@ spin-weighted harmonics and the physical constants. float64 stages agree to
 Bessel factor to ~1e-6.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -142,6 +143,18 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.models.flux\n"
         "import emri_frequencydomainwaveforms_tpu_torch.models.inspiral\n"
         "import emri_frequencydomainwaveforms_tpu_torch.models.summation_fd\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.summation_td\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils.windows\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils.fdutils\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils.transform\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils.periodic\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.sensitivity\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.noise\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.diagnostic\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.likelihood\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.ensemble\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.backends.hdf\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.cli.emri_pe\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'emri_frequencydomainwaveforms_tpu'))\n"
@@ -153,3 +166,16 @@ def test_port_imports_no_jax():
         cwd=str(Path(__file__).resolve().parents[1]),
     )
     assert res.returncode == 0, res.stderr
+
+
+def test_port_and_smoke_sources_name_no_jax_import():
+    # no line of the port's sources or of chip_smoke.py imports JAX or the
+    # JAX package, at module level or inside a function
+    root = Path(__file__).resolve().parents[1]
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|emri_frequencydomainwaveforms_tpu)(\s|\.|$)")
+    files = sorted((root / "emri_frequencydomainwaveforms_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 30
+    bad = [f"{f.relative_to(root)}:{i + 1}" for f in files
+           for i, line in enumerate(f.read_text().splitlines()) if pattern.match(line)]
+    assert not bad, bad
