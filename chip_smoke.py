@@ -20,8 +20,14 @@ parameter-estimation path users run, `cli/emri_pe.py`'s `run_emri_pe` at
 the production settings (1 yr, dt 10 s, downsample 100, rwz physics, kmax 48
 frozen, 32 walkers x 4 temperatures, 3 sampler steps) with the in-memory
 chain backend, and checks the zero residual at the injection, the stored
-chain and one whitened walker batch against the plain dense pass. Last it
-times the kernel on the dense-pass tables the runs produced, beside its
+chain and one whitened walker batch against the plain dense pass. Between
+the two it drives the production batch again through the parallel-in-time
+quadrature trajectory (``traj_method="quad"``: checks, the trajectory issued
+with no host sync and equal to the CPU's, quad against dp5, and both
+trajectories timed), runs `cli/check_mode_by_mode.py`'s TD-vs-FD scan for
+one 1-yr draw, and the reference-signature facades (`EMRIInspiral`, the
+Kerr `get_fundamental_frequencies` / `get_separatrix`) against the CPU.
+Last it times the kernel on the dense-pass tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead. Every phase raises on
 failure; nothing falls back to the CPU or to the plain version.
@@ -73,6 +79,12 @@ PE_ARGS = ("-Tobs 1 -M 1e6 -mu 10 -e0 0.35 -dt 10 -eps 1e-2 -downsample 100 -tem
            "-injectFD 1 -flux multipole_rwz -amp rwz -kmax 48 -nwalkers 32 -ntemps 4 "
            "-nsteps 3 --seed 2601996 --start-scale 1e-7 --subset 64")
 PE_SNR_TPU = 57.1  # PE_VALIDATION.md, a TPU run
+QUAD_LANES_CPU = 8  # lanes of the quad trajectory compared with the CPU
+# the JAX package's quad-vs-dp5 distance, one lane of this batch's source at
+# 1 yr (tests/test_torch_rwz.py::test_quad_vs_dp5_yardstick_reference, CPU)
+QUAD_YARDSTICK = (5.3923e-05, 9.0083e-05)  # max |dPhi_phi| rad, FD rel L2
+# cli/check_mode_by_mode.py at the paper's size for one draw
+SCAN_ARGS = "-Tobs 1 -nsteps 1 -dt 10 -eps 1e-2 -downsample 100 --seed 2601996"
 
 
 T_START = time.perf_counter()
@@ -126,6 +138,23 @@ def device_ms(fn, reps: int, torch):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / reps / 1e3 if us > 0 else None
+
+
+def device_trace(fn, torch):
+    """One run of ``fn`` under ``torch.profiler`` (device activity only):
+    its kernel launches, its copies and fills, the device's busy ms (the
+    CUDA events' self time) and the traced run's wall ms on the host clock."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.count for e in on_card if e.key.startswith(("Memcpy", "Memset")))
+    kernels = sum(e.count for e in on_card) - copies
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    return kernels, copies, busy_ms, wall_ms
 
 
 def fmt(ms) -> str:
@@ -275,7 +304,7 @@ def drive_path(label, phys, env):
     check(rel_cpu <= 1e-4, f"{label}: lane 0 GPU vs CPU rel L2 {rel_cpu:.3e} <= 1e-4")
 
     # ---- timing (informational) ----
-    del out, twin, host, hp_abs
+    del twin, host, hp_abs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
@@ -335,7 +364,7 @@ def drive_path(label, phys, env):
           f"{BATCH}-walker batch, host clock, synchronized); stages (ms): "
           + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stage.items())
           + f"; on {card}", flush=True)
-    return dict(gen=gen, table_k=table_k, forced_idx=forced_idx, pro=pro, traj=traj,
+    return dict(gen=gen, table_k=table_k, forced_idx=forced_idx, pro=pro, out=out, traj=traj,
                 single=single, launches=launches, launches_1=launches_1,
                 tables=tables[0], tables_1=tables_1[0], max_knots=max_knots)
 
@@ -492,6 +521,236 @@ def drive_pe(env):
     return dict(tables=seen["tables"], tables_1=seen["tables_1"], launches=n_b, launches_1=n_1)
 
 
+def lane_rel_l2(res, ref):
+    """Per lane, the worst channel's ||res - ref|| / ||ref||, float64."""
+    import torch
+    return torch.stack([
+        torch.linalg.vector_norm(o.double() - t.double(), dim=-1)
+        / torch.linalg.vector_norm(t.double(), dim=-1)
+        for o, t in zip(res, ref)
+    ]).max(dim=0).values
+
+
+def drive_quad(env, rwz):
+    """The production batch of phase 6 through the quadrature trajectory.
+
+    The same 128 walkers, frozen slots, windows and physics, through
+    `waveform_prologue(traj_method="quad")` and `fd_waveform_core`; checks
+    the batch, the kernel on its tables, the trajectory against the same
+    function on the CPU and the sync-free issue of the trajectory; prints
+    quad against dp5 at full width; runs the JAX package's own quad-vs-dp5
+    check (tests/test_trajectory.py:327-370) on the card; times the two
+    trajectories. Returns the kernel's tables and launches.
+    """
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
+    inspiral, amplitude = env["inspiral"], env["amplitude"]
+    batch, nf, f0u, dfu = env["batch"], env["nf"], env["f0u"], env["dfu"]
+    gen, table_k, forced_idx = rwz["gen"], rwz["table_k"], rwz["forced_idx"]
+    idx_k = np.arange(len(forced_idx))
+    grid = gen.flux_grid()
+    rows = (gen.rwz_b_rows, gen.rwz_r_rows)
+    masses = [torch.full_like(batch[0], 1e6), torch.full_like(batch[0], 10.0)]
+
+    def batch_fd(method, dense=fd_dense.fd_dense_accumulate):
+        pro = wf.waveform_prologue(
+            *masses, *batch, 1.0, 0.0, 0.0, t_years=T_YEARS, table=table_k, k_max=K_MAX,
+            eps=EPS, max_steps=MAX_STEPS, forced_idx=idx_k, family_c=gen.family_c,
+            flux_grid=grid, rwz_rows=rows, traj_method=method, **RWZ)
+        with dense_function(summation_fd, dense):
+            out = wf.fd_waveform_core(
+                pro, table_k, nf, channels=True, uniform=(f0u, dfu), band_runs=BAND_RUNS,
+                band_offsets=gen.band_offsets, bins_per_run=BINS_PER_RUN,
+                turnover_slots=TURNOVER_SLOTS, extra_band_runs=EXTRA_BAND_RUNS,
+                band_offsets_extra=gen.band_offsets_extra, out_f32=True)
+        return pro, out
+
+    # phase 6's dp5 batch: its FD output and its prologue on the same slots
+    out_d, pro_d = rwz["out"], rwz["pro"]
+    tables = []
+    fd_dense.fd_dense_accumulate.launches = 0
+    pro_q, out_q = batch_fd("quad", capturing(fd_dense.fd_dense_accumulate, tables))
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    check(launches > 0, "[quad] the quad batch launched the fd_dense kernel")
+    check(all(o.shape == (BATCH, nf) and bool(torch.isfinite(o).all()) for o in out_q),
+          "[quad] every output finite")
+    check(bool((pro_q.n_live == MAX_STEPS).all()), f"[quad] every lane has n == {MAX_STEPS}")
+    check(bool((torch.diff(pro_q.t_knots, dim=-1) > 0).all()), "[quad] t strictly increasing")
+    err, scale = compare(torch, fd_dense, env["cases"], *tables[0], "[quad] batch tables")
+
+    # the trajectory issues no host sync: every input already on the card
+    # (a Python scalar argument would be copied over, which synchronizes),
+    # CUDA's sync debug mode raising on any synchronizing call
+    zeros = torch.zeros_like(batch[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        traj_q = inspiral.schwarz_ecc_flux_inspiral(
+            *masses, batch[0], batch[1], t_years=T_YEARS, Phi_phi0=zeros, Phi_r0=zeros,
+            max_steps=MAX_STEPS, flux="multipole_rwz", flux_grid=grid, method="quad")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the card against the same function on the CPU, over the card's grid
+    lanes = slice(0, QUAD_LANES_CPU)
+    grid_cpu = grid._replace(values=grid.values.cpu())
+    traj_c = inspiral.schwarz_ecc_flux_inspiral(
+        1e6, 10.0, batch[0][lanes].cpu(), batch[1][lanes].cpu(), t_years=T_YEARS,
+        max_steps=MAX_STEPS, flux="multipole_rwz", flux_grid=grid_cpu, method="quad")
+    worst = {}
+    for name in ("t", "p", "e", "Phi_phi", "Phi_r"):
+        a, b = getattr(traj_q, name)[lanes].cpu(), getattr(traj_c, name)
+        diff = float((a - b).abs().max())
+        worst[name] = diff if name.startswith("Phi") else diff / float(b.abs().max())
+    check(all(worst[k] <= 1e-9 for k in ("t", "p", "e")) and
+          all(worst[k] <= 1e-6 for k in ("Phi_phi", "Phi_r")),
+          f"[quad] card vs CPU on {QUAD_LANES_CPU} lanes: {worst}")
+
+    # quad against dp5 at full width (printed, not gated)
+    rel_np = lane_rel_l2(out_q, out_d).cpu().numpy()
+    # |dPhi_phi| at each lane's live dp5 knots inside quad's span, from a
+    # not-a-knot spline of quad's phase (all lanes at once)
+    sp = env["cubic_spline"].fit_cubic_spline(pro_q.t_knots, pro_q.phi_phi, bc="not-a-knot")
+    live = ((torch.arange(MAX_STEPS, device=dev)[None, :] < pro_d.n_live[:, None])
+            & (pro_d.t_knots <= pro_q.t_knots[:, -1:]))
+    gap = (env["cubic_spline"].spline_eval(sp, pro_d.t_knots) - pro_d.phi_phi).abs()
+    dphi = torch.where(live, gap, 0.0).max(dim=-1).values.cpu().numpy()
+    print(f"[quad] B={BATCH} rwz batch through traj_method='quad' (n = {MAX_STEPS} knots in "
+          f"every lane, t strictly increasing): finite, fd_dense launches={launches}, kernel vs "
+          f"plain on its tables max|kernel-plain|={err:.3e} (rel {err / scale:.3e}), 0 outside the "
+          f"bands; card vs CPU on {QUAD_LANES_CPU} lanes: t {worst['t']:.3e}, p {worst['p']:.3e}, "
+          f"e {worst['e']:.3e} (relative, <= 1e-9), Phi_phi {worst['Phi_phi']:.3e}, Phi_r "
+          f"{worst['Phi_r']:.3e} rad (<= 1e-6); no host sync in the trajectory (CUDA sync debug "
+          f"mode 'error'); quad vs dp5 over the batch: FD rel L2 max {rel_np.max():.4e} median "
+          f"{np.median(rel_np):.4e}, |dPhi_phi| at dp5's knots max {dphi.max():.4e} median "
+          f"{np.median(dphi):.4e} rad (the JAX package's own at one lane of this source on the "
+          f"CPU: {QUAD_YARDSTICK[1]:.4e}, {QUAD_YARDSTICK[0]:.4e} rad)", flush=True)
+    del out_d, pro_d, traj_q, traj_c, rwz["out"], rwz["pro"]
+
+    # the JAX package's own check, on the card: PM flux, 0.1 yr, l <= 2,
+    # k_max 8, dp5 at 256 knots against quad at 128, the set pinned to dp5's
+    table8 = amplitude.default_mode_table(8, l_max=2)
+    freq8 = wf.default_frequencies(0.1, DT)
+    f8 = freq8[freq8 > 0]
+    uni8 = (float(f8[0]), float(f8[1] - f8[0]))
+    params = (1e6, 50.0, 12.0, 0.4, 0.7, 0.5, 1.0, 0.0, 0.0)
+    kw8 = dict(t_years=0.1, table=table8, k_max=8, eps=1e-2)
+    forced8 = wf.waveform_prologue(*params, max_steps=256, **kw8).sel.idx[0].cpu().numpy()
+    outs8 = {}
+    for method, msteps in (("dp5", 256), ("quad", 128)):
+        pro8 = wf.waveform_prologue(*params, forced_idx=forced8, max_steps=msteps,
+                                    traj_method=method, **kw8)
+        outs8[method] = wf.fd_waveform_core(pro8, table8, len(f8), channels=True, uniform=uni8)
+    rms = max(float(torch.sqrt(torch.mean((a - b) ** 2)) / torch.sqrt(torch.mean(a**2)))
+              for a, b in zip(outs8["dp5"], outs8["quad"]))
+    print(f"[quad] the JAX package's own check on the card (tests/test_trajectory.py:327-370: PM, "
+          f"0.1 yr, l <= 2, k_max 8, dp5 at 256 vs quad at 128): rel L2 {rms:.4e} (< 1e-3)",
+          flush=True)
+    check(rms < 1e-3, f"[quad] PM 0.1-yr quad vs dp5 rel L2 {rms:.3e} < 1e-3")
+
+    # ---- [timing quad] ----
+    secs = {}
+    for method in ("quad", "dp5", "quad", "dp5"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inspiral.schwarz_ecc_flux_inspiral(
+            *masses, batch[0], batch[1], t_years=T_YEARS, max_steps=MAX_STEPS,
+            flux="multipole_rwz", flux_grid=grid, method=method)
+        torch.cuda.synchronize()
+        secs.setdefault(method, []).append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_fd("quad")
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    print(f"[timing quad] {BATCH}-walker rwz trajectory: quad "
+          f"{' / '.join(f'{x * 1e3:.1f}' for x in secs['quad'])} ms, dp5 "
+          f"{' / '.join(f'{x * 1e3:.1f}' for x in secs['dp5'])} ms (two runs each, alternating); "
+          f"the whole quad batch (prologue + FD core) {whole * 1e3:.1f} ms, "
+          f"{BATCH / whole:.2f} waveforms/s; host clock, synchronized; on {card}", flush=True)
+
+    def run_quad():
+        inspiral.schwarz_ecc_flux_inspiral(
+            *masses, batch[0], batch[1], t_years=T_YEARS, max_steps=MAX_STEPS,
+            flux="multipole_rwz", flux_grid=grid, method="quad")
+
+    return dict(tables=tables[0], launches=launches, run_quad=run_quad,
+                quad_ms=1e3 * sum(secs["quad"]) / len(secs["quad"]))
+
+
+def drive_scan(env):
+    """`cli/check_mode_by_mode.py`'s `run_check` on the card at the paper's
+    size for one draw, with its checks; returns the full-grid FD call's
+    tables and the scan's kernel launches."""
+    torch, card = env["torch"], env["card"]
+    fd_dense, summation_fd = env["fd_dense"], env["summation_fd"]
+    from emri_frequencydomainwaveforms_tpu_torch.cli import check_mode_by_mode as scan
+
+    args = scan.build_parser().parse_args(SCAN_ARGS.split())
+    calls = []
+
+    def keep(groups, *, r, nf):
+        calls.append((groups, r, nf))
+        return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
+
+    fd_dense.fd_dense_accumulate.launches = 0
+    with dense_function(summation_fd, keep):
+        res = scan.run_check(args, write=False)
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    check(res["failed_points"] == [], f"[scan] failed points {res['failed_points']}")
+    check(launches > 0 and launches == len(calls), f"[scan] fd_dense launches {launches}")
+    full = max(calls, key=lambda c: c[2])
+    check(full[2] == env["nf"] and full[0][0].pc.shape[0] == 1,
+          f"[scan] the full-grid FD call (nf {full[2]}) went through the kernel")
+    mism = {w: res["mismatch"][w][0] for w in scan.WINDOWS}
+    values = [res[k][0] for k in ("SNR", "loglike", "timing_fd", "timing_fd_downsampled",
+                                  "timing_td")] + list(mism.values())
+    check(all(np.isfinite(v) for v in values), f"[scan] stored values finite: {values}")
+    check(all(0.0 < v < 1.0 for v in mism.values()), f"[scan] mismatches in (0, 1): {mism}")
+    m_c, mu, _, p0, e0 = res["list_injections"][0][:5]
+    t_fd, t_ds, t_td = (res[k][0] for k in ("timing_fd", "timing_fd_downsampled", "timing_td"))
+    print(f"[scan] run_check({SCAN_ARGS}; flux {args.flux}, amp {args.amp}, "
+          f"{args.turnover_slots} turnover slots) on the card: M {m_c:.6e}, mu {mu:.6f}, "
+          f"e0 {e0:.6f}, p0 {p0:.6f}; no failed point; fd_dense "
+          f"launches {launches} (the full-grid call at nf {full[2]}, r {full[1]}); windowed FD/TD "
+          f"mismatch " + ", ".join(f"{w} {v:.4e}" for w, v in mism.items())
+          + f" (gate 2's bound for hann: 1e-4); SNR {res['SNR'][0]:.4f}; log L "
+          f"{res['loglike'][0]:.6e}; t_fd {t_fd:.3f} s, t_fd_downsampled {t_ds:.3f} s, t_td "
+          f"{t_td:.3f} s, speed-up t_td / t_fd {t_td / t_fd:.3f}; host clock; on {card}",
+          flush=True)
+    return dict(tables=full, launches=launches)
+
+
+def drive_facades(env):
+    """The reference-signature facades on the card against the CPU."""
+    torch = env["torch"]
+    from emri_frequencydomainwaveforms_tpu_torch.models import utility
+
+    traj = env["inspiral"].EMRIInspiral(max_steps=256)(1e6, 10.0, 0.0, 12.0, 0.35, 1.0, T=0.1)
+    full = env["inspiral"].schwarz_ecc_flux_inspiral(1e6, 10.0, 12.0, 0.35, t_years=0.1,
+                                                     max_steps=256)
+    n = int(full.n[0])
+    check(traj[0].device == env["dev"] and all(
+        torch.equal(a, getattr(full, k)[0, :n]) for a, k in zip(
+            traj, ("t", "p", "e", "x", "Phi_phi", "Phi_theta", "Phi_r"))),
+        "[facades] EMRIInspiral equals lane 0 of the trajectory, trimmed, on the card")
+    worst = 0.0
+    for a, p, e, x in ((0.0, 9.0, 0.3, 1.0), (0.6, 7.0, 0.2, 1.0), (0.5, 9.0, 0.3, 0.7)):
+        on_card = [*utility.get_fundamental_frequencies(a, p, e, x),
+                   utility.get_separatrix(a, e, x)]
+        on_cpu = [*utility.get_fundamental_frequencies(a, p, e, x, device="cpu"),
+                  utility.get_separatrix(a, e, x, device="cpu")]
+        for u, v in zip(on_card, on_cpu):
+            check(np.isfinite(u).all(), f"[facades] finite at {(a, p, e, x)}")
+            worst = max(worst, float(np.max(np.abs(u - v) / np.abs(v))))
+    check(worst <= 1e-12, f"[facades] card vs CPU {worst:.3e} <= 1e-12")
+    print(f"[facades] EMRIInspiral = lane 0 of schwarz_ecc_flux_inspiral on the card ({n} live "
+          f"knots); get_fundamental_frequencies and get_separatrix at a Schwarzschild, an "
+          f"equatorial-Kerr and an inclined-Kerr point, card vs CPU: {worst:.3e} (<= 1e-12)",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -501,7 +760,7 @@ def main() -> None:
     from emri_frequencydomainwaveforms_tpu_torch.models import amplitude, flux, inspiral
     from emri_frequencydomainwaveforms_tpu_torch.models import modeselect, summation_fd
     from emri_frequencydomainwaveforms_tpu_torch.models import waveform as wf
-    from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
+    from emri_frequencydomainwaveforms_tpu_torch.ops import cubic_spline, fd_dense
     from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
     from emri_frequencydomainwaveforms_tpu_torch.utils import fdutils
     from emri_frequencydomainwaveforms_tpu_torch.utils.ylm import spin_weighted_ylm
@@ -574,7 +833,8 @@ def main() -> None:
     batch = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (p0s, e0s, ths, phs)]
     env = dict(torch=torch, dev=dev, card=card, wf=wf, fd_dense=fd_dense,
                summation_fd=summation_fd, inspiral=inspiral, amplitude=amplitude,
-               table=table, batch=batch, nf=nf, f0u=f0u, dfu=dfu, cases=cases)
+               cubic_spline=cubic_spline, table=table, batch=batch, nf=nf, f0u=f0u, dfu=dfu,
+               cases=cases)
     flat = drive_path("flat", {}, env)
     check(flat["max_knots"] <= MAX_STEPS - 4, f"flat max_knots {flat['max_knots']} <= {MAX_STEPS - 4}")
     flat = {k: flat[k] for k in ("launches", "launches_1", "tables", "tables_1")}
@@ -719,11 +979,25 @@ def main() -> None:
     check(np.isfinite(pl_non) and pl_non < 1e-3, f"plunge cross-check {pl_non:.3e} < 1e-3")
     check(np.isfinite(pl_term) and pl_term < 0.3, f"plunge terminations {pl_term:.3e} < 0.3")
     del banded_pl, general_pl, pro_pl, pro_l0
+    torch.cuda.empty_cache()
+
+    phase_done("rwz path and gates 0, 1b, 1, 1c, 2")
+    # ---- the production batch through the quadrature trajectory ----
+    quad = drive_quad(env, rwz)
     rwz = {k: rwz[k] for k in ("launches", "launches_1", "tables", "tables_1")}
     del gen
     torch.cuda.empty_cache()
 
-    phase_done("rwz path and gates 0, 1b, 1, 1c, 2")
+    phase_done("quad")
+    # ---- the TD-vs-FD scan, cli/check_mode_by_mode.py, one draw at 1 yr ----
+    scan = drive_scan(env)
+    torch.cuda.empty_cache()
+
+    phase_done("scan")
+    # ---- the reference-signature facades ----
+    drive_facades(env)
+
+    phase_done("facades")
     # ---- phase 7: parameter estimation, cli/emri_pe.py at the production settings ----
     pe = drive_pe(env)
     torch.cuda.empty_cache()
@@ -738,6 +1012,8 @@ def main() -> None:
         (rwz["tables_1"], "fd_dense_accumulate[rwz]", 99, rwz["launches_1"], 100),
         (pe["tables"], "fd_dense_accumulate_batched[pe]", 203, pe["launches"], 10),
         (pe["tables_1"], "fd_dense_accumulate[pe]", 99, pe["launches_1"], 100),
+        (quad["tables"], "fd_dense_accumulate_batched[quad]", 203, quad["launches"], 10),
+        (scan["tables"], "fd_dense_accumulate[scan]", 99, scan["launches"], 10),
     ):
         n_b = groups[0].pc.shape[0]
         err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")
@@ -772,6 +1048,19 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     phase_done("kernel records")
+    # ---- what the quad trajectory issues to the card, traced last: traced
+    # with host activity inside the quad phase (NVIDIA H100 80GB HBM3, 700 W),
+    # the quad and dp5 trajectories' ~3 x 10^5 launches took minutes to stop,
+    # the phases after ran slower and phase 8's profiler read no device time ----
+    kernels, copies, busy_ms, traced_ms = device_trace(quad["run_quad"], torch)
+    check(kernels > 0, "[timing quad] the traced quad trajectory launched kernels")
+    print(f"[timing quad] quad trajectory ({BATCH} walkers, rwz), one run traced by "
+          f"torch.profiler: {kernels} kernel launches, {copies} copies and fills, device busy "
+          f"{busy_ms:.1f} ms ({busy_ms / kernels * 1e3:.2f} us per launch; "
+          f"{100 * busy_ms / quad['quad_ms']:.1f} % of the untraced {quad['quad_ms']:.1f} ms "
+          f"mean); {traced_ms:.1f} ms traced, host clock; on {card}", flush=True)
+    del quad
+    phase_done("quad trace")
     print(f"[seconds] whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,10 +27,15 @@ Ported so far: the batched FD waveform path from `waveform_prologue` through
 `fd_waveform_core`, with the flat physics (Peters-Mathews flux, plain
 multipole amplitudes) and the production physics (the multipole flux grid
 with tail, factorized and rwz amplitudes), on the banded uniform-grid kernel
-and on the general sorted-grid kernel that checks it; the TD path and the
-waveform facades; and the parameter-estimation loop (``lisa/``,
-``inference/``, ``cli/emri_pe.py``: whitened likelihood, tempered
-stretch-move sampler, chain backends).
+and on the general sorted-grid kernel that checks it; the adaptive DP5 and
+the parallel-in-time quadrature trajectories (``method="dp5"`` /
+``"quad"``); the TD path and the waveform facades; the parameter-estimation
+loop (``lisa/``, ``inference/``, ``cli/emri_pe.py``: whitened likelihood,
+tempered stretch-move sampler, chain backends); the TD-vs-FD scan
+(``cli/check_mode_by_mode.py``); the Kerr geodesics and the reference's
+utility and class facades (``models/utility.py``, ``EMRIInspiral``,
+``NewtonianAmplitude``, ``ModeSelector``, ``GetYlms``,
+``CubicSplineInterpolant``).
 """
 
 __version__ = "0.1.0"

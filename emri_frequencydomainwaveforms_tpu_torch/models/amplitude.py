@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .amplitude_backends import u_of_pe
 from .geodesic import _N_CHI, _antiderivative_matrix
 from .rho import _x_of_mode, factorized_correction
@@ -396,10 +397,48 @@ def full_fidelity_amplitudes(
     return mode_amplitudes(p, e, table, tail=True, factorized=True, rwz=True)
 
 
+class NewtonianAmplitude:
+    """The reference's amplitude-module call signature.
+
+    ``amp(p, e, specific_modes=[(l, m, n), ...])`` returns ``{(l, m, n):
+    complex numpy array}`` (every mode of `default_mode_table(n_max)` when
+    no modes are named). Negative-m requests come from the equatorial
+    symmetry A_{l,-m,-n} = (-1)^l conj(A_{l,m,n}). ``device``: where the
+    amplitudes are computed (default the tensor argument's, else the
+    current CUDA device).
+    """
+
+    def __init__(self, device=None, **kwargs):
+        del kwargs  # the reference's max_init_len / use_gpu
+        self.device = device
+
+    def __call__(self, p, e, specific_modes=None, n_max: int = 30):
+        dev = resolve_device(self.device, p, e)
+        p = torch.as_tensor(p, dtype=torch.float64, device=dev)
+        e = torch.as_tensor(e, dtype=torch.float64, device=dev)
+        if specific_modes is None:
+            table = default_mode_table(n_max)
+            re, im = (x.cpu().numpy() for x in mode_amplitudes(p, e, table))
+            return {
+                (int(l), int(m), int(n)): re[..., i] + 1j * im[..., i]
+                for i, (l, m, n) in enumerate(zip(table.ls, table.ms, table.ns))
+            }
+        # served from the m >= 0 half: (l, -m, -n) for m < 0, with a flip
+        req = [(l, -m, -n) if m < 0 else (l, m, n) for l, m, n in specific_modes]
+        table = ModeTable(*(np.array(col) for col in zip(*req)))
+        re, im = (x.cpu().numpy() for x in mode_amplitudes(p, e, table))
+        out = {}
+        for i, (l, m, n) in enumerate(specific_modes):
+            a = re[..., i] + 1j * im[..., i]
+            out[(l, m, n)] = (-1.0) ** l * np.conj(a) if m < 0 else a
+        return out
+
+
 __all__ = [
     "ModeTable",
     "default_mode_table",
     "family_constants",
     "mode_amplitudes",
     "full_fidelity_amplitudes",
+    "NewtonianAmplitude",
 ]

@@ -199,17 +199,33 @@ def pdot_edot(p: torch.Tensor, e: torch.Tensor, flux_fn=pn_flux_e_l) -> tuple[to
     return pdot, edot
 
 
-def inspiral_rhs(state: torch.Tensor, nu: torch.Tensor, flux_fn=pn_flux_e_l) -> torch.Tensor:
-    """RHS of d/dt [p, e, Phi_phi, Phi_r] in geometric time (units of M).
-
-    ``state``: (B, 4); ``nu``: mass ratio mu/M, (B,) or scalar. ``flux_fn``
-    is the dissipative model: `pn_flux_e_l` (Peters-Mathews), a function
-    ``(p, e) -> (Edot, Ldot)/nu``, or a `FluxGrid` to interpolate with
-    `multipole_flux_e_l`.
-    """
+def as_flux_fn(flux_fn):
+    """A dissipative model as a function ``(p, e) -> (Edot, Ldot)/nu``: a
+    `FluxGrid` becomes its `multipole_flux_e_l` interpolant, a function is
+    returned as it is."""
     if isinstance(flux_fn, FluxGrid):
         grid = flux_fn
-        flux_fn = lambda p_, e_: multipole_flux_e_l(p_, e_, grid)  # noqa: E731
+        return lambda p_, e_: multipole_flux_e_l(p_, e_, grid)
+    return flux_fn
+
+
+class InspiralRHS(NamedTuple):
+    """Parameters of the inspiral ODE."""
+
+    nu: torch.Tensor  # mass ratio mu/M, (B,) or scalar
+
+
+def inspiral_rhs(state: torch.Tensor, nu, flux_fn=pn_flux_e_l) -> torch.Tensor:
+    """RHS of d/dt [p, e, Phi_phi, Phi_r] in geometric time (units of M).
+
+    ``state``: (B, 4); ``nu``: mass ratio mu/M, (B,) or scalar, bare or in
+    an `InspiralRHS`. ``flux_fn`` is the dissipative model: `pn_flux_e_l`
+    (Peters-Mathews), a function ``(p, e) -> (Edot, Ldot)/nu``, or a
+    `FluxGrid` to interpolate with `multipole_flux_e_l`.
+    """
+    if isinstance(nu, InspiralRHS):
+        nu = nu.nu
+    flux_fn = as_flux_fn(flux_fn)
     p, e = state[..., 0], state[..., 1]
     # clamp eccentricity away from exactly 0 for the edot/e terms
     e_safe = torch.clamp_min(e, 1.0e-9)
@@ -231,6 +247,8 @@ __all__ = [
     "default_flux_grid",
     "multipole_flux_e_l",
     "pdot_edot",
+    "as_flux_fn",
+    "InspiralRHS",
     "inspiral_rhs",
     "stop_condition",
 ]

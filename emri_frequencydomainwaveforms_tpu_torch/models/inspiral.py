@@ -1,11 +1,13 @@
 """Batched Schwarzschild eccentric flux inspirals.
 
-Counterpart of ``emri_frequencydomainwaveforms_tpu.models.inspiral`` for the
-adaptive DP5 stepper (``method="dp5"`` there): `schwarz_ecc_flux_inspiral`
-integrates a walker batch of trajectories at the integrator's own adaptive
-knots, under the Peters-Mathews flux or one of the multipole flux grids
-(`models.flux`); `get_p_at_t` and `get_mu_at_t` bisect p0 or mu for a given
-inspiral duration.
+Counterpart of ``emri_frequencydomainwaveforms_tpu.models.inspiral``:
+`schwarz_ecc_flux_inspiral` integrates a walker batch of trajectories under
+the Peters-Mathews flux or one of the multipole flux grids (`models.flux`),
+either with the adaptive DP5 stepper at its own knots (``method="dp5"``) or
+by the parallel-in-time quadrature of `models.trajectory_quad`
+(``method="quad"``); `EMRIInspiral` is the reference's call signature over
+it; `get_p_at_t` and `get_mu_at_t` bisect p0 or mu for a given inspiral
+duration (always with DP5, as in the reference).
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ def schwarz_ecc_flux_inspiral(
     delta_p_stop: float = 0.12,
     flux: str = "pm",
     flux_grid: FluxGrid | None = None,
+    method: str = "dp5",
     device=None,
 ) -> Trajectory:
     """Integrate a batch of Schwarzschild eccentric flux inspirals.
@@ -100,12 +103,25 @@ def schwarz_ecc_flux_inspiral(
         rwz strong-field calibration).
       flux_grid: the multipole grid to interpolate instead of the default
         one of that rung (`flux.default_flux_grid`, built on first use).
+      method: "dp5" (the adaptive stepper, one host sync per step) or
+        "quad" (`trajectory_quad`: p as the clock, a fixed-depth pass with
+        no host sync; every one of the ``max_steps`` knots live).
       device: where to run; default the first tensor argument's device, else
         the current CUDA device (raises without one: pass device="cpu").
 
     Returns:
       Trajectory with t in seconds; each lane stops at min(T, separatrix).
     """
+    if method == "quad":
+        from .trajectory_quad import schwarz_ecc_flux_inspiral_quad
+
+        return schwarz_ecc_flux_inspiral_quad(
+            mass_1, mass_2, p0, e0, t_years=t_years, Phi_phi0=Phi_phi0, Phi_r0=Phi_r0,
+            max_steps=max_steps, delta_p_stop=delta_p_stop, flux=flux, flux_grid=flux_grid,
+            device=device,
+        )
+    if method != "dp5":
+        raise ValueError(f"method={method!r}: expected 'dp5' or 'quad'")
     m, mu, p0, e0, ph0, pr0 = _batch_f64(mass_1, mass_2, p0, e0, Phi_phi0, Phi_r0, device=device)
     flux_fn = flux_model(flux, p0.device, flux_grid)
     nu = mu / m
@@ -131,6 +147,35 @@ def schwarz_ecc_flux_inspiral(
         Phi_r=knots.y[..., 3],
         n=knots.n,
     )
+
+
+class EMRIInspiral:
+    """The reference's trajectory call signature, one source per call.
+
+    ``traj(M, mu, a, p0, e0, x0, T=...)`` returns ``(t, p, e, x, Phi_phi,
+    Phi_theta, Phi_r)``, each trimmed on the host to the live knots; the
+    spin and inclination are inert for Schwarzschild-eccentric orbits.
+    ``max_steps`` and ``rtol`` given to the constructor reach the
+    trajectory, and so does ``device`` (default: the current CUDA device).
+    """
+
+    def __init__(self, func: str = "SchwarzEccFlux", device=None, **kwargs):
+        if func != "SchwarzEccFlux":
+            raise NotImplementedError(f"trajectory model {func!r} not implemented")
+        self.device = device
+        self.kwargs = kwargs
+
+    def __call__(self, M, mu, a, p0, e0, x0, T=1.0, Phi_phi0=0.0, Phi_theta0=0.0, Phi_r0=0.0,
+                 **kw):
+        del a, x0, Phi_theta0
+        traj = schwarz_ecc_flux_inspiral(
+            M, mu, p0, e0, t_years=float(T), Phi_phi0=Phi_phi0, Phi_r0=Phi_r0,
+            device=self.device,
+            **{k: v for k, v in self.kwargs.items() if k in ("max_steps", "rtol")},
+        )
+        n = int(traj.n[0])
+        return tuple(arr[0, :n] for arr in (traj.t, traj.p, traj.e, traj.x, traj.Phi_phi,
+                                            traj.Phi_theta, traj.Phi_r))
 
 
 def inspiral_duration(mass_1, mass_2, p0, e0, *, t_cap_years: float = 8.0,
@@ -211,6 +256,7 @@ __all__ = [
     "Trajectory",
     "flux_model",
     "schwarz_ecc_flux_inspiral",
+    "EMRIInspiral",
     "inspiral_duration",
     "get_p_at_t",
     "get_mu_at_t",

@@ -83,6 +83,20 @@ def select_modes(
     return SelectedModes(idx=idx, mask=mask, power=p_top)
 
 
+class ModeSelector:
+    """The reference selector's call shape, simplified as in the JAX
+    package: ``selector(a_re, a_im, y_pr, y_pi, y_mr, y_mi, eps)`` ->
+    `SelectedModes` of the table's ``k_max`` strongest modes."""
+
+    def __init__(self, table, k_max: int = 64):
+        self.table = table
+        self.k_max = k_max
+
+    def __call__(self, a_re, a_im, y_pr, y_pi, y_mr, y_mi, eps: float = 1e-5):
+        power = mode_power(a_re, a_im, y_pr, y_pi, y_mr, y_mi)
+        return select_modes(power, self.k_max, eps)
+
+
 def table_indices_for(table, requested) -> np.ndarray:
     """Candidate-table indices of explicit ``mode_selection`` (l, m, n)
     entries (host-side lookup; KeyError for a mode not in the table)."""
@@ -98,4 +112,5 @@ def table_indices_for(table, requested) -> np.ndarray:
     return np.asarray(out, dtype=np.int32)
 
 
-__all__ = ["SelectedModes", "mode_power", "top_k_stable", "select_modes", "table_indices_for"]
+__all__ = ["SelectedModes", "mode_power", "top_k_stable", "select_modes", "ModeSelector",
+           "table_indices_for"]

@@ -77,6 +77,7 @@ def waveform_prologue(
     family_c: torch.Tensor | None = None,
     flux_grid: FluxGrid | None = None,
     rwz_rows: tuple[torch.Tensor, torch.Tensor] | None = None,
+    traj_method: str = "dp5",
     device=None,
 ) -> WaveformPrologue:
     """Trajectory + amplitudes + Ylm + mode selection for a walker batch.
@@ -88,6 +89,8 @@ def waveform_prologue(
     dissipation model (`inspiral.schwarz_ecc_flux_inspiral`) and ``tail`` /
     ``factorized`` / ``rwz`` the amplitude rung (`amplitude.mode_amplitudes`);
     pair flux="multipole_rwz" with all three for the production physics.
+    ``traj_method`` is the trajectory's method, "dp5" or "quad"
+    (`inspiral.schwarz_ecc_flux_inspiral`).
     ``family_c``, ``flux_grid`` and ``rwz_rows`` hand in state a batch-frozen
     module already keeps on the device. ``device`` defaults to the first
     tensor argument's device, else the current CUDA device (raises without
@@ -99,7 +102,7 @@ def waveform_prologue(
     dev, dt = p0.device, p0.dtype
     traj = schwarz_ecc_flux_inspiral(
         m1, m2, p0, e0, t_years=t_years, Phi_phi0=ph0, Phi_r0=pr0,
-        max_steps=max_steps, flux=flux, flux_grid=flux_grid,
+        max_steps=max_steps, flux=flux, flux_grid=flux_grid, method=traj_method,
     )
     a_re, a_im = mode_amplitudes(
         traj.p, traj.e, table, tail=tail, factorized=factorized, rwz=rwz,
@@ -482,8 +485,9 @@ class FastSchwarzschildEccentricFlux:
     """Source-frame generator facade (the reference's call contract).
 
     One source per call; returns numpy complex arrays. ``inspiral_kwargs``
-    takes ``max_steps`` (the trajectory's knot budget; only the adaptive
-    DP5 stepper is ported), ``amplitude_kwargs`` the rungs ``tail``,
+    takes ``method`` ("dp5", the default, or "quad"; see
+    `inspiral.schwarz_ecc_flux_inspiral`) and ``max_steps`` (the
+    trajectory's knot budget), ``amplitude_kwargs`` the rungs ``tail``,
     ``factorized`` and ``rwz`` (all on by default: the production physics),
     ``sum_kwargs`` ``output_type`` ("td" or "fd"; the grids are the odd
     ``default_time_grid`` / ``default_frequencies``), ``turnover_slots``
@@ -509,12 +513,7 @@ class FastSchwarzschildEccentricFlux:
         inspiral_kwargs = inspiral_kwargs or {}
         amplitude_kwargs = amplitude_kwargs or {}
         sum_kwargs = sum_kwargs or {}
-        method = inspiral_kwargs.get("method", "dp5")
-        if method != "dp5":
-            raise NotImplementedError(
-                f"trajectory method {method!r}: only 'dp5' is ported (the JAX package's "
-                "models/trajectory_quad.py has 'quad')"
-            )
+        self.traj_method = inspiral_kwargs.get("method", "dp5")
         self.device = resolve_device(device)
         self.traj_max_steps = int(inspiral_kwargs.get("max_steps", 512))
         self.tail = bool(amplitude_kwargs.get("tail", True))
@@ -558,7 +557,7 @@ class FastSchwarzschildEccentricFlux:
             k_max=len(forced) if forced is not None else self.k_max,
             eps=eps, forced_idx=forced, flux=self.flux, tail=self.tail,
             factorized=self.factorized, rwz=self.rwz, max_steps=self.traj_max_steps,
-            device=self.device,
+            traj_method=self.traj_method, device=self.device,
         )
 
         def host(x):

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
 from .tridiag import thomas_solve
 
 
@@ -143,4 +144,26 @@ def spline_eval_at_segments(
     return 2.0 * c2 + 6.0 * dx * c3
 
 
-__all__ = ["CubicSplineCoeffs", "fit_cubic_spline", "spline_eval", "spline_eval_at_segments"]
+class CubicSplineInterpolant:
+    """The reference engine's interpolant: built from ``(t, y)`` with ``y``
+    of shape ``(ninterps, length)`` or ``(length,)``, called with new times
+    for values of shape ``(ninterps, m)``. ``device``: where the spline
+    lives (default a tensor argument's, else the current CUDA device)."""
+
+    def __init__(self, t, y, bc: str = "natural", device=None):
+        dev = resolve_device(device, t, y)
+        t, y = (torch.as_tensor(v, dtype=torch.float64, device=dev) for v in (t, y))
+        self.coeffs = fit_cubic_spline(t, y, bc=bc)
+
+    def __call__(self, t_new, deriv: int = 0):
+        t_new = torch.as_tensor(t_new, dtype=torch.float64, device=self.coeffs.x.device)
+        return spline_eval(self.coeffs, t_new, deriv=deriv)
+
+
+__all__ = [
+    "CubicSplineCoeffs",
+    "fit_cubic_spline",
+    "spline_eval",
+    "spline_eval_at_segments",
+    "CubicSplineInterpolant",
+]

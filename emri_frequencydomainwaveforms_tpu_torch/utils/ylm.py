@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 
 def _binom(n: int, k: int) -> float:
     if k < 0 or k > n:
@@ -89,4 +91,30 @@ def spin_weighted_ylm(
     return mag * torch.cos(mphi), mag * torch.sin(mphi)
 
 
-__all__ = ["spin_weighted_ylm"]
+class GetYlms:
+    """The reference's Ylm generator: complex numpy out.
+
+    With ``assume_positive_m=True`` a call with (l, m >= 0) arrays returns
+    the 2n array ``[Y_{l,m}..., Y_{l,-m}...]``, as the reference does.
+    ``device``: where the harmonics are computed (default a tensor
+    argument's, else the current CUDA device).
+    """
+
+    def __init__(self, assume_positive_m: bool = False, use_gpu: bool = None, device=None):
+        del use_gpu
+        self.assume_positive_m = assume_positive_m
+        self.device = device
+
+    def __call__(self, ls, ms, theta, phi):
+        ls = np.asarray(ls)
+        ms = np.asarray(ms)
+        if self.assume_positive_m:
+            ls = np.concatenate([ls, ls])
+            ms = np.concatenate([ms, -ms])
+        dev = resolve_device(self.device, theta, phi)
+        theta, phi = (torch.as_tensor(x, dtype=torch.float64, device=dev) for x in (theta, phi))
+        re, im = spin_weighted_ylm(ls, ms, theta, phi)
+        return re.cpu().numpy() + 1j * im.cpu().numpy()
+
+
+__all__ = ["spin_weighted_ylm", "GetYlms"]

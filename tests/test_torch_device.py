@@ -13,9 +13,12 @@ import torch
 
 from emri_frequencydomainwaveforms_tpu_torch import convert
 from emri_frequencydomainwaveforms_tpu_torch.models import flux as t_flux
+from emri_frequencydomainwaveforms_tpu_torch.models import geodesic as t_geo
 from emri_frequencydomainwaveforms_tpu_torch.models import inspiral as t_insp
 from emri_frequencydomainwaveforms_tpu_torch.models import waveform as t_wf
 from emri_frequencydomainwaveforms_tpu_torch.models.amplitude import default_mode_table
+from emri_frequencydomainwaveforms_tpu_torch.ops import bessel as t_bes
+from emri_frequencydomainwaveforms_tpu_torch.ops.cubic_spline import CubicSplineInterpolant
 from emri_frequencydomainwaveforms_tpu_torch.utils.device import resolve_device
 
 
@@ -68,6 +71,16 @@ _SCALAR_CALLS = {
     "build_flux_grid": lambda **kw: t_flux.build_flux_grid(n_u=4, n_e=4, tail=True, **kw).values,
     "flux_grid_from_numpy": lambda **kw: convert.flux_grid_from_numpy(
         0.0, 0.1, 0.0, 0.1, np.zeros((4, 4, 2)), **kw).values,
+    "schwarz_ecc_flux_inspiral quad": lambda **kw: t_insp.schwarz_ecc_flux_inspiral(
+        1e6, 10.0, 12.0, 0.35, t_years=0.01, max_steps=32, method="quad", **kw),
+    "EMRIInspiral": lambda **kw: t_insp.EMRIInspiral(max_steps=32, **kw)(
+        1e6, 10.0, 0.0, 12.0, 0.35, 1.0, T=0.01),
+    "fundamental_frequencies_kerr_generic": lambda **kw: t_geo.fundamental_frequencies_kerr_generic(
+        0.5, 9.0, 0.3, 0.7, **kw),
+    "CubicSplineInterpolant": lambda **kw: CubicSplineInterpolant(
+        np.linspace(0.0, 1.0, 6), np.arange(6.0), **kw)(np.array([0.25, 0.5])),
+    "kve_one_third": lambda **kw: t_bes.kve_one_third(np.array([0.5 + 0.5j, 9.0]), **kw),
+    "bessel_jn": lambda **kw: t_bes.bessel_jn(4, np.array([0.0, 1.5]), **kw),
 }
 
 

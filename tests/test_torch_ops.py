@@ -155,6 +155,9 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.inference.ensemble\n"
         "import emri_frequencydomainwaveforms_tpu_torch.inference.backends.hdf\n"
         "import emri_frequencydomainwaveforms_tpu_torch.cli.emri_pe\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.cli.check_mode_by_mode\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.trajectory_quad\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.models.utility\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'emri_frequencydomainwaveforms_tpu'))\n"

@@ -512,6 +512,69 @@ def test_duration_roots_on_carried_grid(rwz_grids):
     assert abs(float(got_mu[0]) - ref_mu) < 1e-12 * ref_mu
 
 
+def test_quad_trajectory_on_carried_grid(rwz_grids):
+    # method="quad" under the rwz flux: the port's batch over the carried
+    # grid against the reference per lane (which reads the same grid from
+    # its cache): a horizon-capped 1-yr lane (the main path's source) and a
+    # plunging lane; fields 1e-9 relative, phases 1e-6 rad
+    lanes = [(1e6, 10.0, 12.0, 0.35), (1e6, 50.0, 7.6, 0.3)]
+    m, mu, p0, e0 = (torch.tensor(c, dtype=torch.float64) for c in zip(*lanes))
+    got = t_insp.schwarz_ecc_flux_inspiral(m, mu, p0, e0, t_years=1.0, max_steps=192,
+                                           flux="multipole_rwz", flux_grid=rwz_grids[1],
+                                           method="quad")
+    assert bool((got.n == 192).all())
+    assert got.t[1, -1] < 0.5 * got.t[0, -1]  # the second lane plunges
+    for i, lane in enumerate(lanes):
+        ref = j_insp.schwarz_ecc_flux_inspiral(*lane, t_years=1.0, max_steps=192,
+                                               flux="multipole_rwz", method="quad")
+        for field in ("t", "p", "e", "Phi_phi", "Phi_r"):
+            a, b = np.asarray(getattr(ref, field)), getattr(got, field)[i].numpy()
+            err = np.max(np.abs(a - b))
+            bound = 1e-6 if field.startswith("Phi") else 1e-9 * np.max(np.abs(a))
+            assert err <= bound, (i, field, err)
+
+
+def test_quad_vs_dp5_yardstick_reference():
+    """The JAX package's own quad-vs-dp5 distance at the main path's
+    configuration, one lane (the batch's source, 1 yr, rwz physics, 16
+    slots frozen from dp5's eps selection on the l <= 6 table, 256-run
+    windows of 64 bins, 2 turnover slots): the largest |Delta Phi_phi| at
+    dp5's knots and the worst channel's relative L2 distance of the FD
+    output. It is what the card's quad batch is read against (chip_smoke.py
+    prints the port's at full width); held to the reference test's bounds
+    (tests/test_trajectory.py: 2e-3 rad, 1e-3)."""
+    from scipy.interpolate import CubicSpline
+
+    table = j_amp.default_mode_table(30)
+    src = (1e6, 10.0, 12.0, 0.35, 0.7, 0.5, 1.0, 0.0, 0.0)
+    freq = j_wf.default_frequencies(1.0, 10.0)
+    f_np = freq[freq > 0]
+    f0, df = float(f_np[0]), float(f_np[1] - f_np[0])
+    kw = dict(t_years=1.0, k_max=16, eps=1e-2, max_steps=192, **RWZ)
+    idx = np.asarray(jax.jit(lambda: j_wf.waveform_prologue(*src, table=table, **kw).sel.idx)())
+    table_k = j_amp.ModeTable(table.ls[idx], table.ms[idx], table.ns[idx])
+    pros, outs = {}, {}
+    for method in ("dp5", "quad"):
+        pros[method] = jax.jit(lambda: j_wf.waveform_prologue(
+            *src, table=table_k, forced_idx=np.arange(16), traj_method=method, **kw))()
+        if method == "dp5":
+            offsets = j_wf.band_offsets_for(pros[method], table_k, f0, df, 64, 256)
+        outs[method] = [np.asarray(o, np.float64) for o in jax.jit(lambda p: j_wf.fd_waveform_core(
+            p, table_k, jnp.zeros(len(f_np)), channels=True, uniform=(f0, df), band_runs=256,
+            band_offsets=offsets, bins_per_run=64, turnover_slots=2, extra_band_runs=64,
+            out_f32=True))(pros[method])]
+    d, q = pros["dp5"], pros["quad"]
+    n = int(d.n_live)
+    t_d, t_q = np.asarray(d.t_knots)[:n], np.asarray(q.t_knots)
+    on = t_d <= t_q[-1]
+    dphi = np.max(np.abs(CubicSpline(t_q, np.asarray(q.phi_phi))(t_d[on])
+                         - np.asarray(d.phi_phi)[:n][on]))
+    rel = max(np.linalg.norm(a - b) / np.linalg.norm(a) for a, b in zip(outs["dp5"], outs["quad"]))
+    print(f"[reference quad vs dp5, 1 yr rwz, one lane] max |dPhi_phi| at dp5's {n} knots "
+          f"{dphi:.4e} rad, FD rel L2 {rel:.4e}")
+    assert np.isfinite(rel) and dphi < 2e-3 and rel < 1e-3
+
+
 # ------------------------------------------------- the frozen rwz batch
 
 
