@@ -27,6 +27,13 @@ with no host sync and equal to the CPU's, quad against dp5, and both
 trajectories timed), runs `cli/check_mode_by_mode.py`'s TD-vs-FD scan for
 one 1-yr draw, and the reference-signature facades (`EMRIInspiral`, the
 Kerr `get_fundamental_frequencies` / `get_separatrix`) against the CPU.
+After the gates it drives the data-driven amplitude backends on the rwz
+batch's knots (`[backends]`: the Interp2D grid built on the card, a ROMAN
+network trained on it) and the reference's Pallas-named FD entry points on
+the batch's kernel inputs at full width (`[pallas-names]`); after the PE run,
+the Fisher set on the PE template at the injection (`[fisher]`, card and
+CPU), relative binning on a chirp (`[relbin]`) and the sampler diagnostics
+of the PE chain (`[diagnostics]`).
 Last it times the kernel on the dense-pass tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead. Every phase raises on
@@ -85,6 +92,27 @@ QUAD_LANES_CPU = 8  # lanes of the quad trajectory compared with the CPU
 QUAD_YARDSTICK = (5.3923e-05, 9.0083e-05)  # max |dPhi_phi| rad, FD rel L2
 # cli/check_mode_by_mode.py at the paper's size for one draw
 SCAN_ARGS = "-Tobs 1 -nsteps 1 -dt 10 -eps 1e-2 -downsample 100 --seed 2601996"
+ROMAN_STEPS = 300  # Adam steps of 512 orbits in [backends]
+# [backends] grid card vs CPU: float32 projections summed in another order;
+# the port's and the JAX package's grids on the CPU differ by 1.36e-3 and
+# 2.27e-5 in these two measures (tests/test_torch_backends.py)
+GRID_L2_TOL, GRID_FROZEN_TOL = 5e-3, 1e-4
+# [pallas-names] windows: the production 256 runs plus the 128-run slack the
+# wrapper's rounding of the window starts asks for
+PALLAS_RUNS = 384
+# [fisher]: the sampled parameters (lnM, p0, e0, Phi_phi0), probe steps, and
+# the stencil step as the share of the waveform's norm it moves
+FISHER_PARAMS = (0, 2, 3, 4)
+FISHER_PROBE = (1e-9, 1e-8, 1e-7, 1e-3)
+FISHER_STEP = 0.1
+# card vs CPU, each element against sqrt(Gamma_ii Gamma_jj): from a ~1e-5
+# waveform agreement (phases to 1e-6 rad times m, the float32 dense pass to
+# 1e-6), which the stencil divides by FISHER_STEP (x 0.95) and each element
+# carries twice: ~2e-4, and 5x that. The card's and the CPU's dp5 templates
+# differ by more (1.4e-4 rel L2 at the injection), but smoothly in the
+# parameters, so the stencil cancels most of it
+FISHER_TOL = 1e-3
+RELBIN_WALKERS = 64
 
 
 T_START = time.perf_counter()
@@ -518,7 +546,8 @@ def drive_pe(env):
           f"{timing['evals_per_s']:.2f} posterior evaluations/s "
           f"(nsteps x ntemps x nwalkers / wall, the wall holding the start as in the CLI); "
           f"host clock, synchronized; on {card}", flush=True)
-    return dict(tables=seen["tables"], tables_1=seen["tables_1"], launches=n_b, launches_1=n_1)
+    return dict(tables=seen["tables"], tables_1=seen["tables_1"], launches=n_b, launches_1=n_1,
+                args=args, out=out)
 
 
 def lane_rel_l2(res, ref):
@@ -615,6 +644,11 @@ def drive_quad(env, rwz):
             & (pro_d.t_knots <= pro_q.t_knots[:, -1:]))
     gap = (env["cubic_spline"].spline_eval(sp, pro_d.t_knots) - pro_d.phi_phi).abs()
     dphi = torch.where(live, gap, 0.0).max(dim=-1).values.cpu().numpy()
+    p0s, e0s = (x.cpu().numpy() for x in batch[:2])
+    worst_lanes = "; ".join(
+        f"largest {what}: lane {i} (p0 {p0s[i]:.6f}, e0 {e0s[i]:.6f}) FD rel L2 {rel_np[i]:.4e}, "
+        f"|dPhi_phi| {dphi[i]:.4e} rad"
+        for what, i in (("FD rel L2", int(np.argmax(rel_np))), ("|dPhi_phi|", int(np.argmax(dphi)))))
     print(f"[quad] B={BATCH} rwz batch through traj_method='quad' (n = {MAX_STEPS} knots in "
           f"every lane, t strictly increasing): finite, fd_dense launches={launches}, kernel vs "
           f"plain on its tables max|kernel-plain|={err:.3e} (rel {err / scale:.3e}), 0 outside the "
@@ -624,7 +658,7 @@ def drive_quad(env, rwz):
           f"mode 'error'); quad vs dp5 over the batch: FD rel L2 max {rel_np.max():.4e} median "
           f"{np.median(rel_np):.4e}, |dPhi_phi| at dp5's knots max {dphi.max():.4e} median "
           f"{np.median(dphi):.4e} rad (the JAX package's own at one lane of this source on the "
-          f"CPU: {QUAD_YARDSTICK[1]:.4e}, {QUAD_YARDSTICK[0]:.4e} rad)", flush=True)
+          f"CPU: {QUAD_YARDSTICK[1]:.4e}, {QUAD_YARDSTICK[0]:.4e} rad); {worst_lanes}", flush=True)
     del out_d, pro_d, traj_q, traj_c, rwz["out"], rwz["pro"]
 
     # the JAX package's own check, on the card: PM flux, 0.1 yr, l <= 2,
@@ -749,6 +783,416 @@ def drive_facades(env):
           f"knots); get_fundamental_frequencies and get_separatrix at a Schwarzschild, an "
           f"equatorial-Kerr and an inclined-Kerr point, card vs CPU: {worst:.3e} (<= 1e-12)",
           flush=True)
+
+
+def amp_error(got, ref):
+    """tests/test_rwz_calibration.py's interpolation metric: per point and
+    mode, (|d re| + |d im|) / max(|re| + |im|, 1e-3 of the largest), over
+    the dominant entries (above 0.1 of the largest) and over all of them."""
+    mag = ref[0].abs() + ref[1].abs()
+    err = ((got[0] - ref[0]).abs() + (got[1] - ref[1]).abs()) / mag.clamp_min(1e-3 * float(mag.max()))
+    dominant = mag > 0.1 * float(mag.max())
+    return float(err[dominant].max()), float(err.max())
+
+
+def grid_float32_noise(values, ref, modes):
+    """Two amplitude grids (nu, ne, M, 2) compared as
+    tests/test_torch_backends.py compares the port's with the JAX
+    package's: the largest per-point relative L2 over all modes, and over
+    ``modes`` the largest |difference| / that point's largest |A|."""
+    import torch
+
+    d = (values - ref).pow(2).sum(-1).sqrt()
+    a = ref.pow(2).sum(-1).sqrt()
+    per_point = d.pow(2).sum(-1).sqrt() / a.pow(2).sum(-1).sqrt()
+    idx = torch.as_tensor(np.asarray(modes), device=values.device)
+    frozen = d[..., idx] / a[..., idx].amax(-1, keepdim=True)
+    return float(per_point.max()), float(frozen.max())
+
+
+def drive_backends(env, rwz):
+    """The data-driven amplitude backends on the card, against
+    `full_fidelity_amplitudes` at the rwz batch's own live knots."""
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    amplitude, table = env["amplitude"], env["table"]
+    from emri_frequencydomainwaveforms_tpu_torch.models import amplitude_backends as back
+
+    table_k, forced_idx = rwz["table_k"], rwz["forced_idx"]
+    full = amplitude.full_fidelity_amplitudes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = back.build_amplitude_grid(table, source=full)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    grid_cpu = back.build_amplitude_grid(table, source=full, device="cpu")
+    check(grid.values.device == dev and tuple(grid.values.shape) == (64, 33, table.num_modes, 2),
+          f"[backends] grid {tuple(grid.values.shape)} on {grid.values.device}")
+    check(bool(torch.isfinite(grid.values).all()), "[backends] grid finite")
+    grid_l2, frozen_err = grid_float32_noise(grid.values.cpu(), grid_cpu.values, forced_idx)
+    check(grid_l2 <= GRID_L2_TOL and frozen_err <= GRID_FROZEN_TOL,
+          f"[backends] grid card vs CPU: per-point rel L2 {grid_l2:.3e} <= {GRID_L2_TOL}, frozen "
+          f"slots {frozen_err:.3e} <= {GRID_FROZEN_TOL} of each point's largest")
+
+    # Interp2DAmplitude at the batch's live knots, on the 16 frozen slots
+    traj = rwz["traj"]
+    live = torch.arange(traj.p.shape[1], device=dev)[None, :] < traj.n[:, None]
+    p, e = traj.p[live], traj.e[live]
+    grid_k = grid._replace(values=grid.values[:, :, torch.as_tensor(forced_idx, device=dev)],
+                           table=table_k)
+    got = back.mode_amplitudes_interp2d(p, e, grid_k)
+    ref = full(p, e, table_k)
+    dom_err, all_err = amp_error(got, ref)
+    facade = back.Interp2DAmplitude(grid_k)(p[:4].cpu().numpy(), e[:4].cpu().numpy(),
+                                            specific_modes=[(2, 2, 0), (2, -2, 0)])
+    conj_ok = np.allclose(facade[(2, -2, 0)], np.conj(facade[(2, 2, 0)]), rtol=1e-12, atol=0)
+    check(conj_ok, "[backends] Interp2DAmplitude (l, -m, -n) = (-1)^l conj(A)")
+    check(dom_err < 2e-3 and all_err < 5e-2,
+          f"[backends] interp vs direct at the knots: dominant {dom_err:.3e} < 2e-3, "
+          f"all {all_err:.3e} < 5e-2")
+
+    # ROMAN: 300 Adam steps of 512 orbits against the full-fidelity source
+    params0 = back.init_roman_network(table_k, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = back.fit_roman_network(params0, n_steps=ROMAN_STEPS, batch=512, seed=2, source=full)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(all(w.device == dev and w.dtype == torch.float64 for w in params.weights),
+          "[backends] the network's weights float64 on the card")
+    untrained = params0._replace(scale=params.scale)
+    ps = torch.tensor([9.0, 11.0], dtype=torch.float64, device=dev)
+    es = torch.tensor([0.2, 0.4], dtype=torch.float64, device=dev)
+    direct = full(ps, es, table_k)
+
+    def max_err(pr):
+        out = back.roman_forward(pr, ps, es)
+        return max(float((a - b).abs().max()) for a, b in zip(out, direct))
+
+    def probe_loss(pr):
+        rng = np.random.default_rng(11)
+        u = rng.uniform(np.log(0.55), np.log(12.0), 512)
+        eb = torch.as_tensor(rng.uniform(1e-4, 0.7, 512), device=dev)
+        pb = torch.as_tensor(np.exp(u) - 0.5 + 6.0, device=dev) + 2.0 * eb
+        tr, ti = full(pb, eb, table_k)
+        mre, mim = back.roman_forward(pr, pb, eb)
+        n = table_k.num_modes
+        return float(torch.mean(((mre - tr) / pr.scale[:n]) ** 2 + ((mim - ti) / pr.scale[n:]) ** 2))
+
+    err0, err1 = max_err(untrained), max_err(params)
+    loss0, loss1 = probe_loss(untrained), probe_loss(params)
+    check(err1 < 0.25 * err0, f"[backends] trained error {err1:.3e} < 0.25 x untrained {err0:.3e}")
+    # roman_forward on the card against the CPU, same params
+    cpu_params = back.RomanParams(tuple(w.cpu() for w in params.weights),
+                                  tuple(b.cpu() for b in params.biases), table_k, params.scale.cpu())
+    pk, ek = p[:4096], e[:4096]
+    on_card = back.roman_forward(params, pk, ek)
+    on_cpu = back.roman_forward(cpu_params, pk.cpu(), ek.cpu())
+    fwd_err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(on_card, on_cpu))
+    check(fwd_err <= 1e-12, f"[backends] roman_forward card vs CPU {fwd_err:.3e} <= 1e-12")
+    module = back.RomanAmplitude(params)
+    check(all(isinstance(w, torch.nn.Parameter) and w.dtype == torch.float64
+              for w in module.parameters()), "[backends] RomanAmplitude holds float64 Parameters")
+    print(f"[backends] build_amplitude_grid(default_mode_table(30), full_fidelity_amplitudes) "
+          f"(64, 33, {table.num_modes}, 2) on the card in {grid_s:.2f} s, card vs CPU: per-point "
+          f"rel L2 over the modes {grid_l2:.3e} (<= {GRID_L2_TOL}), the {len(forced_idx)} frozen "
+          f"slots {frozen_err:.3e} of each point's largest (<= {GRID_FROZEN_TOL}); Interp2D at the rwz batch's {p.numel()} live "
+          f"knots on the {table_k.num_modes} frozen slots vs full_fidelity_amplitudes: dominant "
+          f"{dom_err:.4e} (< 2e-3), all {all_err:.4e} (< 5e-2), conjugate rule exact; "
+          f"fit_roman_network {ROMAN_STEPS} steps x 512 on the card in {fit_s:.2f} s: probe "
+          f"loss {loss0:.4e} untrained -> {loss1:.4e} trained, max error at two orbits "
+          f"{err0:.4e} -> {err1:.4e} (< 0.25x); roman_forward card vs CPU {fwd_err:.3e} "
+          f"(<= 1e-12); on {card}", flush=True)
+
+
+class _Captured(Exception):
+    """Stops the FD core once its kernel inputs are taken."""
+
+
+def drive_pallas_names(env, rwz):
+    """The reference's Pallas-named entry points on the rwz batch at full
+    width, against `fd_mode_sum_uniform` on the same inputs and the same
+    windows (the wrapper's window starts, rounded down to 128 runs); then
+    every lane of the wrapper and of the production windows against
+    whole-grid windows. Returns the wrapper's kernel tables and launches
+    (B = 128 and B = 1)."""
+    torch, card = env["torch"], env["card"]
+    wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
+    nf, f0u, dfu = env["nf"], env["f0u"], env["dfu"]
+    gen, pro, table_k = rwz["gen"], rwz["pro"], rwz["table_k"]
+    offsets = gen.band_offsets
+    # the wrapper's own window starts (summation_fd.py:1378-1380 of the reference)
+    g_total = -(-nf // BINS_PER_RUN)
+    rounded = (torch.div(offsets, 128, rounding_mode="floor") * 128).clamp(0, g_total)
+    seen = []
+
+    def grab(inp, *args, **kwargs):
+        seen.append(inp)
+        raise _Captured
+
+    # the batch's FDKernelInputs, as the FD core hands them to the banded kernel
+    with patched(wf, "fd_mode_sum_uniform", grab):
+        try:
+            wf.fd_waveform_core(pro, table_k, nf, channels=True, uniform=(f0u, dfu),
+                                band_offsets=offsets, bins_per_run=BINS_PER_RUN)
+        except _Captured:
+            pass
+    inp = seen[0]
+    del seen
+    check(inp.t_knots.shape[0] == BATCH, f"[pallas-names] inputs for B={inp.t_knots.shape[0]}")
+
+    def scaled_err(a, b):
+        """Worst channel's max |a - b| / max |b|, and per lane (B,)."""
+        lanes = torch.stack([(x - y).abs().amax(-1) / y.abs().amax(-1) for x, y in zip(a, b)])
+        return float(lanes.max()), lanes.amax(0)
+
+    def run(inp_, batched):
+        tables = []
+        kw = dict(bins_per_run=BINS_PER_RUN, band_runs=PALLAS_RUNS)
+        fd_dense.fd_dense_accumulate.launches = 0
+        with dense_function(summation_fd, capturing(fd_dense.fd_dense_accumulate, tables)):
+            fn = (summation_fd.fd_mode_sum_uniform_pallas_batched if batched
+                  else summation_fd.fd_mode_sum_uniform_pallas)
+            got = fn(inp_, f0u, dfu, nf, band_offsets=offsets, **kw)
+        torch.cuda.synchronize()
+        launches = fd_dense.fd_dense_accumulate.launches
+        check(all(o.shape == (inp_.t_knots.shape[0], nf) and o.dtype == torch.float64
+                  and bool(torch.isfinite(o).all()) for o in got), "[pallas-names] outputs")
+        check(tables[0][0][0].pc.shape[2] == PALLAS_RUNS and
+              bool((tables[0][0][0].g0 == rounded).all()),
+              "[pallas-names] windows of 384 runs from the rounded-down starts")
+        ref = summation_fd.fd_mode_sum_uniform(inp_, f0u, dfu, nf, band_offsets=rounded, **kw)
+        return got, scaled_err(got, ref)[0], launches, tables[0]
+
+    got, err, launches, tables = run(inp, True)
+    check(launches > 0, "[pallas-names] the batched wrapper launched the fd_dense kernel")
+    check(err < 1e-4, f"[pallas-names] B=128 wrapper vs fd_mode_sum_uniform {err:.4e} < 1e-4")
+    # what the windows drop, lane by lane: the wrapper's, and the production
+    # 256-run windows at the batch's own offsets, against whole-grid windows
+    # (32 lanes at a time: whole-grid level-1 tables are large)
+    lanes_w, lanes_p = [], []
+    for lo in range(0, BATCH, 32):
+        part = summation_fd.FDKernelInputs(*(x[lo:lo + 32] for x in inp))
+        full = summation_fd.fd_mode_sum_uniform(part, f0u, dfu, nf, bins_per_run=BINS_PER_RUN)
+        lanes_w.append(scaled_err([o[lo:lo + 32] for o in got], full)[1])
+        prod = summation_fd.fd_mode_sum_uniform(part, f0u, dfu, nf, bins_per_run=BINS_PER_RUN,
+                                                band_runs=BAND_RUNS, band_offsets=offsets)
+        lanes_p.append(scaled_err(prod, full)[1])
+        del full, prod
+    del got
+    lanes_w, lanes_p = torch.cat(lanes_w), torch.cat(lanes_p)
+    trunc_w, trunc_p = float(lanes_w.max()), float(lanes_p.max())
+    worst_p = int(torch.argmax(lanes_p))
+    lane0 = summation_fd.FDKernelInputs(*(x[:1] for x in inp))
+    del inp
+    _, err_1, launches_1, tables_1 = run(lane0, False)
+    check(launches_1 > 0, "[pallas-names] the one-walker wrapper launched the fd_dense kernel")
+    check(err_1 < 1e-4, f"[pallas-names] B=1 wrapper vs fd_mode_sum_uniform {err_1:.4e} < 1e-4")
+    print(f"[pallas-names] fd_mode_sum_uniform_pallas_batched on the rwz batch's FDKernelInputs "
+          f"(B={BATCH}, nf={nf}, r={BINS_PER_RUN}, band_runs {PALLAS_RUNS}, the batch's "
+          f"band_offsets rounded down to 128 runs, one slot group) vs fd_mode_sum_uniform on "
+          f"the same windows: max/scale {err:.4e} (< 1e-4, tests/test_waveform.py:163); "
+          f"fd_dense launches {launches}; one-walker form on lane 0: {err_1:.4e}, launches "
+          f"{launches_1}. Against whole-grid windows, lane by lane: the wrapper's windows worst "
+          f"{trunc_w:.4e}; the production {BAND_RUNS}-run windows at the unrounded offsets "
+          f"worst {trunc_p:.4e} (lane {worst_p}; {int((lanes_p > 1e-4).sum())} lanes past "
+          f"1e-4, lane 0 {float(lanes_p[0]):.4e}); on {card}", flush=True)
+    return dict(tables=tables, launches=launches, tables_1=tables_1, launches_1=launches_1)
+
+
+def drive_fisher(env, pe_run):
+    """`lisa.diagnostic`'s Fisher set on the PE likelihood's template at the
+    injection, on the card and, for the same source, on the CPU."""
+    torch, card = env["torch"], env["card"]
+    from emri_frequencydomainwaveforms_tpu_torch.cli import emri_pe
+    from emri_frequencydomainwaveforms_tpu_torch.lisa import diagnostic
+
+    args, out = pe_run["args"], pe_run["out"]
+    like, truth = out["likelihood"], out["truth"]
+    ip = dict(f_arr=out["f_arr"], PSD=out["noise_fn"])
+    grid = out["flux_grid"]
+
+    def waveform(template):
+        """The template at one point of the FISHER_PARAMS (the rest at the
+        truth), as complex channels on the template's device. Its memo holds
+        the points `evaluate` computed in one batch (the template's batched
+        contract: each walker's value does not depend on the batch)."""
+        memo = {}
+
+        def evaluate(points):
+            x = np.repeat(truth[None], len(points), axis=0)
+            x[:, list(FISHER_PARAMS)] = points
+            chans = template(like.transform.both_transforms(torch.as_tensor(x)))
+            for k, q in enumerate(points):
+                memo[q.tobytes()] = [re[k].double() + 1j * im[k].double() for re, im in chans]
+
+        def wf(q):
+            q = np.asarray(q, dtype=np.float64)
+            if q.tobytes() not in memo:
+                evaluate(q[None])
+            return memo[q.tobytes()]
+
+        wf.evaluate = evaluate
+        return wf
+
+    def stencil(q0, eps):
+        """The centre and the points `dh_dlambda` asks for, built as it
+        builds them (so the memo's keys match bit for bit)."""
+        pts = [q0]
+        for i, e in enumerate(eps):
+            for delta in (2 * e, e, -e, -2 * e):
+                p = q0.copy()
+                p[i] += delta
+                pts.append(p)
+        return np.stack(pts)
+
+    card_t = emri_pe.fd_template(args, out["table"], out["forced_idx"], out["f_arr"],
+                                 flux_grid=grid, device=env["dev"])
+    grid_cpu = None if grid is None else grid._replace(values=grid.values.cpu())
+    cpu_t = emri_pe.fd_template(args, out["table"], out["forced_idx"], out["f_arr"],
+                                flux_grid=grid_cpu, device="cpu")
+    wf_card, wf_cpu = waveform(card_t), waveform(cpu_t)
+    q0 = truth[list(FISHER_PARAMS)].copy()
+    # steps that move the waveform by FISHER_STEP of its norm (the stencil's
+    # truncation is then ~(2 x 0.1)^4 / 30 ~ 5e-5 relative), from one probe
+    # step per parameter, all in one batch
+    probes = q0[None] + np.diag(FISHER_PROBE)
+    wf_card.evaluate(np.concatenate([q0[None], probes]))
+    h0 = [h.cpu().numpy() for h in wf_card(q0)]
+    norm0 = np.sqrt(sum(np.sum(np.abs(h) ** 2) for h in h0))
+    eps = []
+    for i, probe in enumerate(FISHER_PROBE):
+        moved = np.sqrt(sum(np.sum(np.abs(a.cpu().numpy() - b) ** 2)
+                            for a, b in zip(wf_card(probes[i]), h0)))
+        check(moved > 0, f"[fisher] parameter {FISHER_PARAMS[i]} moves the waveform")
+        eps.append(probe * FISHER_STEP * norm0 / moved)
+    eps = np.array(eps)
+    points = stencil(q0, eps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf_card.evaluate(points)
+    gamma = diagnostic.fisher(wf_card, q0, eps, **ip)
+    fisher_s = time.perf_counter() - t0
+    try:
+        import mpmath  # noqa: F401  (torch's sympy brings it)
+        precise = True
+    except ImportError:
+        precise = False
+    # the same stencil points again, from the memo: no new template call
+    cov = diagnostic.covariance(wf_card, q0, eps, precision=precise, **ip)
+    w, _ = diagnostic.get_eigens(gamma)
+    d = np.sqrt(np.diag(gamma))
+    ident = np.abs((cov * d[:, None] * d[None, :]) @ (gamma / d[:, None] / d[None, :])
+                   - np.eye(len(q0))).max()
+    check(bool(np.isfinite(gamma).all() and np.isfinite(cov).all()), "[fisher] finite")
+    check(np.array_equal(gamma, gamma.T), "[fisher] symmetric")
+    check(bool((w > 0).all()), f"[fisher] eigenvalues {w} positive")
+    check(ident <= 1e-6, f"[fisher] (D cov D)(D^-1 Gamma D^-1) - I max {ident:.3e} <= 1e-6")
+    t0 = time.perf_counter()
+    wf_cpu.evaluate(points)
+    gamma_cpu = diagnostic.fisher(wf_cpu, q0, eps, **ip)
+    cpu_s = time.perf_counter() - t0
+    h_cpu = [h.numpy() for h in wf_cpu(q0)]
+    wave_err = np.sqrt(sum(np.sum(np.abs(a - b) ** 2) for a, b in zip(h0, h_cpu))) / norm0
+    diff = np.abs(gamma - gamma_cpu) / np.outer(d, d)
+    check(diff.max() <= FISHER_TOL, f"[fisher] card vs CPU {diff.max():.3e} <= {FISHER_TOL}")
+    names = ["lnM", "ln(mu/M)", "p0", "e0", "Phi_phi0", "Phi_r0"]
+    sigma = np.sqrt(np.diag(cov))
+    print(f"[fisher] fisher over ({', '.join(names[i] for i in FISHER_PARAMS)}) at the [pe] "
+          f"injection, the PE template ({args.flux}, {args.Tobs} yr, {len(out['f_arr'])} bins), eps "
+          f"{np.array2string(eps, precision=3)} (each moving the waveform by {FISHER_STEP} of "
+          f"its norm): the {len(points)} stencil points as one template batch, fisher on the card "
+          f"in {fisher_s:.2f} s, on the CPU in {cpu_s:.2f} s; covariance({'precision=True, mpmath' if precise else 'precision=False: no mpmath'}) "
+          f"sigma {np.array2string(sigma, precision=4)}; eigenvalues "
+          f"{np.array2string(w, precision=4)} (all > 0); symmetric; scaled cov @ Gamma - I "
+          f"{ident:.3e} (<= 1e-6); card vs CPU: template at the injection rel L2 {wave_err:.3e}, "
+          f"Fisher max |dGamma_ij| / sqrt(Gamma_ii Gamma_jj) {diff.max():.3e} (<= {FISHER_TOL}); "
+          f"on {card}", flush=True)
+
+
+def drive_relbin(env):
+    """`lisa.relbin` on tests/test_relbin.py's chirp, the per-call core on
+    the card for a 64-walker batch, against the dense log L on the card."""
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    from emri_frequencydomainwaveforms_tpu_torch.lisa.relbin import RelativeBinningLikelihood
+
+    f = np.linspace(1e-3, 2e-2, 40000)
+    psd = 1e-40 * (1.0 + (3e-3 / f) ** 4 + (f / 1e-2) ** 2)
+    f_t, psd_t = (torch.as_tensor(x, device=dev) for x in (f, psd))
+
+    def chirp(params, ff):
+        # tests/test_relbin.py's PN-like toy: (n, 4) -> (re, im) of (n, len(ff))
+        a, t0, phi0, eta = (params[..., i:i + 1] for i in range(4))
+        psi = 2 * np.pi * ff * t0 + phi0 + eta * (ff / 1e-2) ** (-5.0 / 3.0)
+        amp = a * (ff / 1e-2) ** (-7.0 / 6.0) * 1e-19
+        return amp * torch.cos(psi), amp * torch.sin(psi)
+
+    truth = np.array([1.0, 5e3, 0.8, 2.0])
+    fid = truth * (1.0 + 1e-4)
+
+    def dense(params):
+        re, im = chirp(torch.as_tensor(params, device=dev), f_t)
+        data = chirp(torch.as_tensor(truth[None], device=dev), f_t)
+        res = (data[0] - re) ** 2 + (data[1] - im) ** 2
+        return -0.5 * torch.sum(4.0 * (f[1] - f[0]) * res / psd_t, dim=-1)
+
+    def complex_of(params):
+        re, im = chirp(torch.as_tensor(params[None], device=dev), f_t)
+        return (re[0] + 1j * im[0]).cpu().numpy()
+
+    like = None
+
+    def template_fn(params):
+        return [chirp(torch.as_tensor(params, device=dev), like.f_edges_t)]
+
+    like = RelativeBinningLikelihood(template_fn, f, [complex_of(truth)], [complex_of(fid)], psd,
+                                     max_bins=512)
+    rng = np.random.default_rng(3)
+    scales = np.array([1e-3, 3e-2, 3e-3, 1e-4]) * np.abs(truth)
+    walkers = truth + rng.standard_normal((RELBIN_WALKERS, 4)) * scales
+    rb = like(torch.as_tensor(walkers, device=dev))
+    full = dense(walkers)
+    check(rb.shape == (RELBIN_WALKERS,) and rb.device == dev and bool(torch.isfinite(rb).all()),
+          "[relbin] the 64-walker call is finite, on the card")
+    err = (rb - full).abs().cpu().numpy()
+    spread = float(full[:12].abs().max())
+    at_fid = abs(float(like.logl(torch.as_tensor(fid, device=dev)) - dense(fid[None])[0]))
+    check(at_fid < 1e-6 * max(abs(float(dense(fid[None])[0])), 1.0), f"[relbin] at the fiducial {at_fid:.3e}")
+    check(spread > 1.0 and err[:12].max() < 0.02 * spread,
+          f"[relbin] 12 draws: max error {err[:12].max():.3e} < 0.02 x spread {spread:.3e}")
+    w_t = torch.as_tensor(walkers, device=dev)
+    rb_ms = time_ms(lambda: like(w_t), 20, torch)
+    dense_ms = time_ms(lambda: dense(walkers), 20, torch)
+    print(f"[relbin] RelativeBinningLikelihood on tests/test_relbin.py's chirp (40000 frequencies, "
+          f"{like.nbins} bins): exact at the fiducial to {at_fid:.3e}; 12 posterior-scale draws "
+          f"max |rb - dense| {err[:12].max():.4e} < 0.02 x spread {spread:.4e} "
+          f"({RELBIN_WALKERS} walkers: max {err.max():.4e}); one {RELBIN_WALKERS}-walker call "
+          f"{rb_ms:.4f} ms, the dense log L on the card {dense_ms:.4f} ms (CUDA events, "
+          f"template included); on {card}", flush=True)
+
+
+def drive_diagnostics(env, pe_run):
+    """The sampler diagnostics on the [pe] run's backend and sampler."""
+    from emri_frequencydomainwaveforms_tpu_torch.inference import stopping
+
+    out = pe_run["out"]
+    backend, sampler = out["backend"], out["sampler"]
+    tau = backend.get_autocorr_time()["emri"]
+    logz, dlogz = backend.get_evidence_estimate()
+    indep = sampler.walkers_independent()
+    state = backend.get_last_sample()
+    stop = stopping.AutoCorrelationStop()(0, state, sampler)
+    a0 = sampler.move.a
+    stopping.AdjustStretchProposalScale()(0, state, sampler)
+    a1 = sampler.move.a
+    check(tau.shape == (6,) and bool(np.isfinite(tau).all()), f"[diagnostics] tau {tau}")
+    check(np.isfinite(logz) and np.isfinite(dlogz), f"[diagnostics] log Z {logz}, {dlogz}")
+    check(isinstance(indep, bool) and isinstance(stop, bool), "[diagnostics] bools")
+    check(np.isfinite(a1) and 1.1 <= a1 <= 10.0, f"[diagnostics] stretch a {a1}")
+    print(f"[diagnostics] on the [pe] chain ({backend.iteration} steps, {backend.ntemps} "
+          f"temperatures): get_autocorr_time {np.array2string(tau, precision=4)}; "
+          f"get_evidence_estimate log Z {logz:.6e} +- {dlogz:.3e}; walkers_independent {indep}; "
+          f"AutoCorrelationStop -> {stop}; AdjustStretchProposalScale a {a0} -> {a1:.6f} "
+          f"(acceptance {float(np.mean(sampler.acceptance_fraction)):.3f})", flush=True)
 
 
 def main() -> None:
@@ -982,6 +1426,16 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_done("rwz path and gates 0, 1b, 1, 1c, 2")
+    # ---- the data-driven amplitude backends, on the rwz batch's knots ----
+    drive_backends(env, rwz)
+    torch.cuda.empty_cache()
+
+    phase_done("backends")
+    # ---- the reference's Pallas-named FD entry points at full width ----
+    pallas = drive_pallas_names(env, rwz)
+    torch.cuda.empty_cache()
+
+    phase_done("pallas-names")
     # ---- the production batch through the quadrature trajectory ----
     quad = drive_quad(env, rwz)
     rwz = {k: rwz[k] for k in ("launches", "launches_1", "tables", "tables_1")}
@@ -1003,6 +1457,16 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_done("pe")
+    # ---- the Fisher set on the PE template, relative binning, the sampler diagnostics ----
+    drive_fisher(env, pe)
+    phase_done("fisher")
+    drive_relbin(env)
+    phase_done("relbin")
+    drive_diagnostics(env, pe)
+    del pe["out"]
+    torch.cuda.empty_cache()
+
+    phase_done("diagnostics")
     # ---- phase 8: the kernel on the main paths' own tables ----
     records = []
     for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
@@ -1014,6 +1478,8 @@ def main() -> None:
         (pe["tables_1"], "fd_dense_accumulate[pe]", 99, pe["launches_1"], 100),
         (quad["tables"], "fd_dense_accumulate_batched[quad]", 203, quad["launches"], 10),
         (scan["tables"], "fd_dense_accumulate[scan]", 99, scan["launches"], 10),
+        (pallas["tables"], "fd_dense_accumulate_batched[pallas-names]", 203, pallas["launches"], 10),
+        (pallas["tables_1"], "fd_dense_accumulate[pallas-names]", 99, pallas["launches_1"], 100),
     ):
         n_b = groups[0].pc.shape[0]
         err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")

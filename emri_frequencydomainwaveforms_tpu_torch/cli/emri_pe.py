@@ -67,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "point and slice the mode table to it; 0: per-walker eps "
                         "selection over the full candidate table")
     p.add_argument("--plot", action="store_true",
-                   help="corner plot of the cold chain (not ported: raises)")
+                   help="corner plot of the cold chain, next to the chain file (needs matplotlib)")
     p.add_argument("-flux", "--flux", type=str, default="multipole_rwz",
                    choices=["pm", "multipole", "multipole_tail",
                             "multipole_factorized", "multipole_rwz"],
@@ -80,30 +80,78 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def physics(args) -> dict:
+    """The trajectory flux and the amplitude rungs ``args`` name."""
+    return dict(
+        flux=args.flux,
+        tail=args.amp in ("tail", "factorized", "rwz"),
+        factorized=args.amp in ("factorized", "rwz"),
+        rwz=args.amp == "rwz",
+    )
+
+
+def template_prologue(args, table_t, forced_idx, *, flux_grid, device):
+    """The templates' prologue: ``(n, 14)`` transformed parameters -> the
+    `WaveformPrologue` of the (frozen) table ``table_t`` on ``device``."""
+    from ..models.amplitude import family_constants
+    from ..models.rwz_calibration import rwz_rows
+    from ..models.waveform import waveform_prologue
+
+    phys = physics(args)
+    family_c = torch.as_tensor(family_constants(table_t), device=device)
+    rows = rwz_rows(table_t.ls, table_t.ms, table_t.ns, device) if phys["rwz"] else None
+
+    def prologue(params14):
+        p = torch.as_tensor(params14, dtype=torch.float64).to(device)
+        return waveform_prologue(
+            p[:, 0], p[:, 1], p[:, 3], p[:, 4], p[:, 7], p[:, 8], p[:, 6], p[:, 11], p[:, 13],
+            t_years=args.Tobs, table=table_t, k_max=args.kmax, eps=args.eps,
+            max_steps=args.max_steps, forced_idx=forced_idx, family_c=family_c,
+            flux_grid=flux_grid, rwz_rows=rows, device=device, **phys,
+        )
+
+    return prologue
+
+
+def fd_template(args, table_t, forced_idx, f_arr, *, flux_grid, device):
+    """The FD template on the uniform grid ``f_arr``: ``(n, 14)``
+    transformed parameters -> [(h+ re, im), (hx re, im)], (n, nf) float32
+    on ``device``, through the banded kernel."""
+    from ..models.waveform import fd_waveform_core
+
+    prologue = template_prologue(args, table_t, forced_idx, flux_grid=flux_grid, device=device)
+    uniform = (float(f_arr[0]), float(f_arr[1] - f_arr[0]))
+
+    def template(params14):
+        hpr, hpi, hcr, hci = fd_waveform_core(
+            prologue(params14), table_t, len(f_arr), channels=True, uniform=uniform,
+            out_f32=True)
+        return [(hpr, hpi), (hcr, hci)]
+
+    return template
+
+
 def run_emri_pe(args, *, backend=None, device=None) -> dict:
     """Run the PE flow of ``args`` (a `build_parser` namespace).
 
     ``device`` defaults to ``cuda:<args.dev>``; ``backend`` to
     ``HDFBackend(outname)``. Returns the cold and hot chains, the truth, the
-    injection SNR, the backend, the sampler, the likelihood, the solved p0
-    and the host-clock times of the stages (seconds).
+    injection SNR, the backend, the sampler, the likelihood, the solved p0,
+    what rebuilds the template (`fd_template`'s table, forced slots, grid
+    and flux grid) and the host-clock times of the stages (seconds).
     """
     from ..inference.ensemble import EnsembleSampler
     from ..inference.prior import ProbDistContainer, uniform_dist
     from ..lisa.diagnostic import snr
     from ..lisa.likelihood import Likelihood
     from ..lisa.sensitivity import get_sensitivity
-    from ..models.amplitude import default_mode_table, family_constants
+    from ..models.amplitude import default_mode_table
     from ..models.inspiral import flux_model, get_p_at_t
-    from ..models.rwz_calibration import rwz_rows
-    from ..models.waveform import default_frequencies, fd_waveform_core, waveform_prologue
+    from ..models.waveform import default_frequencies, waveform_prologue
     from ..utils.device import resolve_device
     from ..utils.fdutils import get_fft_td_windowed
     from ..utils.transform import TransformContainer
 
-    if args.plot:
-        raise NotImplementedError("--plot: utils/plotting.py is not ported (the JAX "
-                                  "package's cli.emri_pe has it)")
     dev = resolve_device(device if device is not None else torch.device("cuda", args.dev))
     timing = {}
 
@@ -114,13 +162,7 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
     np.random.seed(args.seed)
     t_years, dt = args.Tobs, args.dt
     flux = args.flux
-    amp = args.amp
-    phys_kwargs = dict(
-        flux=flux,
-        tail=amp in ("tail", "factorized", "rwz"),
-        factorized=amp in ("factorized", "rwz"),
-        rwz=amp == "rwz",
-    )
+    phys_kwargs = physics(args)
     grid = None if flux == "pm" else flux_model(flux, dev)
 
     # fix p0 so the inspiral lasts 0.99 Tobs, through the templates' own flux
@@ -136,7 +178,6 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
     ds = max(args.downsample, 1)
     f_np = f_pos[::ds]
     nf = len(f_np)
-    uniform = (float(f_np[0]), float(f_np[1] - f_np[0]))
 
     kmax, max_steps, eps = args.kmax, args.max_steps, args.eps
     if args.freeze_selection:
@@ -152,8 +193,6 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         idx_t = np.arange(len(forced))
     else:
         table_t, idx_t = table, None
-    family_c = torch.as_tensor(family_constants(table_t), device=dev)
-    rows = rwz_rows(table_t.ls, table_t.ms, table_t.ns, dev) if phys_kwargs["rwz"] else None
 
     # fixed parameters filled at likelihood time
     qS, phiS, qK, phiK = np.pi / 4, np.pi / 3, np.pi / 5, np.pi / 6
@@ -169,23 +208,8 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         },
     )
 
-    def prologue(params14):
-        p = torch.as_tensor(params14, dtype=torch.float64).to(dev)
-        return waveform_prologue(
-            p[:, 0], p[:, 1], p[:, 3], p[:, 4], p[:, 7], p[:, 8], p[:, 6], p[:, 11], p[:, 13],
-            t_years=t_years, table=table_t, k_max=kmax, eps=eps, max_steps=max_steps,
-            forced_idx=idx_t, family_c=family_c, flux_grid=grid, rwz_rows=rows, device=dev,
-            **phys_kwargs,
-        )
-
     if args.template == "fd":
-
-        def template(params14):
-            hpr, hpi, hcr, hci = fd_waveform_core(
-                prologue(params14), table_t, nf, channels=True, uniform=uniform, out_f32=True
-            )
-            return [(hpr, hpi), (hcr, hci)]
-
+        template = fd_template(args, table_t, idx_t, f_np, flux_grid=grid, device=dev)
     else:
         # TD template: the dense TD waveform, DFT'd onto the downsampled grid
         from ..models.waveform import default_time_grid, td_waveform_core
@@ -195,6 +219,7 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         n_t = t_grid.shape[0]
         # rfft bins matching f_np = freq[freq > 0][::ds]
         rfft_idx = np.arange(1, (n_t + 1) // 2)[::ds]
+        prologue = template_prologue(args, table_t, idx_t, flux_grid=grid, device=dev)
 
         def template(params14):
             hp, hc = td_waveform_core(prologue(params14), table_t, t_grid)
@@ -305,13 +330,31 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         f"({timing['evals_per_s']:.1f} posterior evals/s); "
         f"acceptance {np.mean(np.asarray(sampler.acceptance_fraction)):.3f}"
     )
+    chain = sampler.get_chain()["emri"]
+    if args.plot:
+        from ..utils.plotting import plot_corner
+
+        cold = chain[:, 0].reshape(-1, 6)
+        cold = cold[~np.isnan(cold[:, 0])]
+        png = outname.replace(".h5", "_corner.png")
+        fig = plot_corner(cold, labels=["lnM", "ln(mu/M)", "p0", "e0", "Phi_phi0", "Phi_r0"],
+                          truths=truth, fname=png)
+        import matplotlib.pyplot as plt
+
+        plt.close(fig)
+        print(f"corner plot written to {png}")
     return {
-        "chain": sampler.get_chain()["emri"],
+        "chain": chain,
         "truth": truth,
         "snr": inj_snr,
         "backend": backend,
         "sampler": sampler,
         "likelihood": like,
+        "table": table_t,
+        "forced_idx": idx_t,
+        "f_arr": f_np,
+        "flux_grid": grid,
+        "noise_fn": noise_fn,
         "start": start,
         "p0": p0,
         "timing": timing,

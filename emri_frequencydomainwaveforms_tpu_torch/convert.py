@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .models.amplitude import ModeTable
+from .models.amplitude_backends import AmplitudeGrid, RomanParams
 from .models.flux import FluxGrid
 from .models.modeselect import SelectedModes
 from .models.summation_fd import FDKernelInputs
@@ -31,6 +32,11 @@ def _tensor(x, device, name: str = "", add_batch: bool = False) -> torch.Tensor:
     return t[None] if add_batch else t
 
 
+def _fields(x) -> dict:
+    """A namedtuple's or a mapping's fields as a dict."""
+    return x._asdict() if hasattr(x, "_asdict") else dict(x)
+
+
 def mode_table_from_numpy(ls, ms, ns) -> ModeTable:
     """A port ModeTable from (l, m, n) integer arrays."""
     return ModeTable(np.asarray(ls), np.asarray(ms), np.asarray(ns))
@@ -42,7 +48,7 @@ def prologue_from_numpy(fields, device=None) -> WaveformPrologue:
     ``y_plus`` / ``y_minus`` (re, im) pairs. ``device`` defaults to the
     current CUDA device (raises without one: pass ``device="cpu"``)."""
     device = resolve_device(device)
-    f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
+    f = _fields(fields)
     add = np.ndim(f["t_knots"]) == 1
 
     def t(name, x=None):
@@ -72,7 +78,7 @@ def fd_inputs_from_numpy(fields, device=None) -> FDKernelInputs:
     """FDKernelInputs from a namedtuple (or mapping) of numpy arrays with the
     reference's field names; ``device`` as for `prologue_from_numpy`."""
     device = resolve_device(device)
-    f = fields._asdict() if hasattr(fields, "_asdict") else dict(fields)
+    f = _fields(fields)
     add = np.ndim(f["t_knots"]) == 1
     return FDKernelInputs(**{k: _tensor(f[k], device, k, add) for k in FDKernelInputs._fields})
 
@@ -88,7 +94,41 @@ def flux_grid_from_numpy(u0, du, e0, de, values, device=None) -> FluxGrid:
     return FluxGrid(float(u0), float(du), float(e0), float(de), vals)
 
 
+def _mode_table(table) -> ModeTable:
+    if isinstance(table, (tuple, list)):
+        return mode_table_from_numpy(*table)
+    return mode_table_from_numpy(table.ls, table.ms, table.ns)
+
+
+def amplitude_grid_from_numpy(fields, device=None) -> AmplitudeGrid:
+    """A port `AmplitudeGrid` from the reference's (a namedtuple or mapping:
+    spacings as Python floats, ``values`` (nu, ne, n_modes, 2) numpy,
+    ``table`` a mode table or an (ls, ms, ns) triple); ``device`` as for
+    `prologue_from_numpy`."""
+    device = resolve_device(device)
+    f = _fields(fields)
+    vals = torch.as_tensor(np.array(f["values"], dtype=np.float64), device=device)
+    return AmplitudeGrid(float(f["u0"]), float(f["du"]), float(f["e0"]), float(f["de"]), vals,
+                         _mode_table(f["table"]))
+
+
+def roman_params_from_numpy(fields, device=None) -> RomanParams:
+    """Port `RomanParams` (float64) from the reference's (``weights`` and
+    ``biases`` sequences of numpy arrays, ``table``, ``scale``); ``device``
+    as for `prologue_from_numpy`."""
+    device = resolve_device(device)
+    f = _fields(fields)
+
+    def t(x):
+        return torch.as_tensor(np.array(x, dtype=np.float64), device=device)
+
+    return RomanParams(tuple(t(w) for w in f["weights"]), tuple(t(b) for b in f["biases"]),
+                       _mode_table(f["table"]), t(f["scale"]))
+
+
 __all__ = [
+    "amplitude_grid_from_numpy",
+    "roman_params_from_numpy",
     "mode_table_from_numpy",
     "prologue_from_numpy",
     "fd_inputs_from_numpy",

@@ -71,6 +71,7 @@ class HDFBackend(Backend):
             self.ndim = self.ndims[self.branch_names[0]]
             self.iteration = int(g.attrs["iteration"])
             self._accepted = g["accepted"][:]
+            self._rj_accepted = np.zeros_like(self._accepted)  # not stored, as in the reference
             self._swaps_accepted = g["swaps_accepted"][:]
             self.info = {k: g["info"].attrs[k] for k in g["info"].attrs} if "info" in g else {}
         return True
@@ -106,8 +107,11 @@ class HDFBackend(Backend):
             g.create_dataset("random_state", shape=(2,), dtype=np.uint32)
             g.create_group("info")
 
-    def save_step(self, state: State, accepted, swap_frac=None, **kwargs):
+    def save_step(self, state: State, accepted, rj_accepted=None, swap_frac=None, **kwargs):
         import h5py
+
+        if rj_accepted is not None:
+            self._rj_accepted = self._rj_accepted + self._accepted_increment(rj_accepted)
 
         with h5py.File(self.filename, "a") as f:
             g = f[self.group]

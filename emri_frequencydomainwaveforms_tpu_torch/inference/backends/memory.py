@@ -2,8 +2,10 @@
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.inference.backends.memory
 .Backend``: a growable numpy store of the chain, the log-likelihoods, the
-log-priors and the ladder, with the reference's getters and acceptance
-counters. Inactive leaves are stored as NaN.
+log-priors and the ladder, with the reference's getters, acceptance
+counters and diagnostics (the integrated autocorrelation time of the cold
+chain and the thermodynamic-integration evidence). Inactive leaves are
+stored as NaN.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ class Backend:
         self._log_prior = []
         self._betas = []
         self._accepted = np.zeros((ntemps, nwalkers))
+        self._rj_accepted = np.zeros((ntemps, nwalkers))
         self._swaps_accepted = np.zeros((max(ntemps - 1, 0),))
         self._rstate = None
         self.initialized = True
@@ -69,8 +72,9 @@ class Backend:
                                   (self.ntemps, self.nwalkers))
         return acc
 
-    def save_step(self, state: State, accepted, swap_frac=None, **kwargs):
-        """Append one iteration. ``accepted``: accepted count per temperature
+    def save_step(self, state: State, accepted, rj_accepted=None, swap_frac=None, **kwargs):
+        """Append one iteration. ``accepted`` (and ``rj_accepted``, the
+        reversible-jump acceptances): accepted count per temperature
         (ntemps,) or per walker (ntemps, nwalkers); ``swap_frac``: swap
         acceptance per adjacent pair."""
         for name in self.branch_names:
@@ -81,6 +85,8 @@ class Backend:
         self._log_prior.append(_np(state.log_prior))
         self._betas.append(_np(state.betas))
         self._accepted = self._accepted + self._accepted_increment(accepted)
+        if rj_accepted is not None:
+            self._rj_accepted = self._rj_accepted + self._accepted_increment(rj_accepted)
         if swap_frac is not None and len(swap_frac):
             self._swaps_accepted = self._swaps_accepted + _np(swap_frac)
         self._rstate = state.random_state
@@ -148,6 +154,32 @@ class Backend:
     @property
     def swap_acceptance_fraction(self):
         return self._swaps_accepted / max(self.iteration, 1)
+
+    @property
+    def rj_acceptance_fraction(self):
+        """Reversible-jump acceptance per (temperature, walker); zero for a
+        fixed-dimension run."""
+        return self._rj_accepted / max(self.iteration, 1)
+
+    def get_autocorr_time(self, discard: int = 0, thin: int = 1, c: float = 5.0, **kwargs):
+        """{branch: integrated autocorrelation time per parameter} of the
+        cold chain's first leaf (walker-averaged ACF, Sokal window ``c``)."""
+        from ...utils.autocorr import get_integrated_act
+
+        name = self.branch_names[0]
+        chain = self.get_chain(discard=discard, thin=thin)[name]  # (n, T, W, L, D)
+        return {name: get_integrated_act(chain[:, 0, :, 0, :], c=c)}
+
+    def get_evidence_estimate(self, discard: int = 0, thin: int = 1, return_error: bool = True):
+        """Thermodynamic-integration log evidence from the tempered ladder
+        (the last stored ladder, each rung's mean log-likelihood over steps
+        and walkers): ``(log Z, error estimate)`` or log Z alone."""
+        from ...utils.autocorr import thermodynamic_integration_log_evidence
+
+        logls = self.get_log_like(discard=discard, thin=thin)  # (n, T, W)
+        betas = self.get_betas(discard=discard, thin=thin)[-1]
+        logz, dlogz = thermodynamic_integration_log_evidence(betas, logls.mean(axis=(0, 2)))
+        return (logz, dlogz) if return_error else logz
 
 
 __all__ = ["Backend"]

@@ -5,7 +5,9 @@ Counterpart of the ``emri_pe`` path of
 construction, `compute_log_prior`, `compute_log_like` (NaN -> -1e300, and
 -1e300 outside the prior), one iteration `_step` (the stretch move, the
 temperature swap cascade, the ladder adaptation), `sample`, `run_mcmc` with
-burn-in and stopping / update hooks, and the getters. The multi-branch and reversible-jump configurations
+burn-in and stopping / update hooks (`inference.stopping`), the getters and
+the diagnostics `get_autocorr_time` and `walkers_independent`. The
+multi-branch and reversible-jump configurations
 (``nleaves_max > 1``, several branches, ``rj_moves``) and move schedules
 are not ported.
 
@@ -265,9 +267,25 @@ class EnsembleSampler:
     def get_log_like(self, **kwargs):
         return self.backend.get_log_like(**kwargs)
 
+    def get_autocorr_time(self, **kwargs):
+        return self.backend.get_autocorr_time(**kwargs)
+
     @property
     def acceptance_fraction(self):
         return self.backend.acceptance_fraction
+
+    def walkers_independent(self, coords=None) -> bool:
+        """Whether the walkers span the parameter space: the condition number
+        of the standardized, centred (nwalkers, ndim) positions (default the
+        cold chain's last stored step) below 1e8."""
+        if coords is None:
+            last = self.backend.get_last_sample()
+            coords = last.branches[self.branch_name].coords[0, :, 0, :]
+        x = cpu64(coords).numpy()
+        x = x - x.mean(axis=0)
+        sigma = x.std(axis=0)
+        sigma[sigma == 0] = 1.0
+        return bool(np.linalg.cond(x / sigma) < 1e8)
 
 
 __all__ = ["EnsembleSampler"]

@@ -1,7 +1,8 @@
-"""Trajectory, amplitudes, mode selection, FD and TD summation, the batched
-waveform module and the waveform facades."""
+"""Trajectory, amplitudes and their data-driven backends, mode selection, FD
+and TD summation, the batched waveform module and the waveform facades."""
 
 from .amplitude import ModeTable, default_mode_table, mode_amplitudes, NewtonianAmplitude
+from .amplitude_backends import Interp2DAmplitude, RomanAmplitude, build_amplitude_grid
 from .geodesic import fundamental_frequencies, separatrix, energy_angmom
 from .inspiral import (
     EMRIInspiral,
@@ -26,6 +27,9 @@ __all__ = [
     "default_mode_table",
     "mode_amplitudes",
     "NewtonianAmplitude",
+    "Interp2DAmplitude",
+    "RomanAmplitude",
+    "build_amplitude_grid",
     "fundamental_frequencies",
     "separatrix",
     "energy_angmom",

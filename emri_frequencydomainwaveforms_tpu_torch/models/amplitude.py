@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .amplitude_backends import u_of_pe
 from .geodesic import _N_CHI, _antiderivative_matrix
 from .rho import _x_of_mode, factorized_correction
 from .rwz_calibration import rwz_correction, rwz_ecc_residual
@@ -376,6 +375,8 @@ def mode_amplitudes(
         c_re, c_im = factorized_correction(table.ls, table.ms, p, e, omega)
         re, im = re * c_re - im * c_im, re * c_im + im * c_re
     if rwz:
+        from .amplitude_backends import u_of_pe  # amplitude_backends imports this module
+
         b_rows, r_rows = rwz_rows if rwz_rows is not None else (None, None)
         b = rwz_correction(table.ls, table.ms, _x_of_mode(omega, table.ms), rows=b_rows)
         # complex eccentric residual: |R| corrects the modulus, arg R the

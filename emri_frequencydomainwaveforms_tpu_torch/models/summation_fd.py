@@ -4,7 +4,8 @@ Counterpart of ``emri_frequencydomainwaveforms_tpu.models.summation_fd``
 (`FDKernelInputs`, `prepare_fd_inputs`, the general sorted-grid kernel
 `fd_mode_sum`, the banded uniform-grid kernel `fd_mode_sum_uniform`, both
 with the turnover and negative extra slots, `_polar_envelope`,
-`_level1_uniform_tables`); the module docstring there carries the
+`_level1_uniform_tables`, and the Pallas-named entry points
+`fd_mode_sum_uniform_pallas[_batched]`); the module docstring there carries the
 mathematics. Every function takes a leading walker-batch axis B.
 
 The banded kernel has two levels, as in the reference:
@@ -809,4 +810,113 @@ def _level1_uniform_tables(
     return pc, nc, ec, f_start, f_end
 
 
-__all__ = ["FDKernelInputs", "prepare_fd_inputs", "fd_mode_sum", "fd_mode_sum_uniform"]
+def _pallas_layout(nf: int, r: int, band_runs: int | None) -> tuple[int, int]:
+    """(runs covering the grid, window runs padded to a multiple of 128), the
+    reference's Pallas layout."""
+    g_total = -(-nf // r)
+    g_band = g_total if band_runs is None else min(band_runs, g_total)
+    return g_total, -(-g_band // 128) * 128
+
+
+def _round_offsets(g0: torch.Tensor, g_total: int) -> torch.Tensor:
+    """Window starts rounded DOWN to 128-run boundaries, clipped to
+    [0, g_total]: each window then begins up to 127 runs below its band, so
+    ``band_runs`` must hold 128 runs of slack above the band width."""
+    g0 = torch.div(g0.to(torch.int32), 128, rounding_mode="floor") * 128
+    return g0.clamp(0, g_total)
+
+
+def _pallas_sum(inp: FDKernelInputs, g0: torch.Tensor, f0: float, df: float, nf: int, r: int,
+                g_band: int):
+    """One slot group (no extra slots) with windows of ``g_band`` runs at the
+    window starts ``g0`` (B, k): the port's level-1 tables into
+    `fd_dense_accumulate`, outputs cast to the trajectory's dtype."""
+    t_knots = inp.t_knots
+    cphi_all = (
+        inp.m_sel[..., None, None] * inp.c_phi_phi[:, None]
+        + inp.n_sel[..., None, None] * inp.c_phi_r[:, None]
+    )
+    f_knots_all = (
+        inp.m_sel[..., None] * inp.f_phi_knots[:, None, :]
+        + inp.n_sel[..., None] * inp.f_r_knots[:, None, :]
+    )
+    ones = torch.ones(g0.shape, dtype=torch.int32, device=t_knots.device)
+    tables = _level1_uniform_tables(
+        cphi_all, inp.ar_c, inp.ai_c, f_knots_all, g0, inp.inc_lo, inp.inc_hi, ones, t_knots,
+        f0, df, r, g_band + 1, r * df, cycle_split=(r & (r - 1)) == 0,
+    )
+    group = _dense_group(tables, inp.inc_live, [inp.w1_re, inp.w1_im, inp.w2_re, inp.w2_im],
+                         g0, f0, df, r)
+    out = fd_dense_accumulate([group], r=r, nf=nf)
+    return tuple(out[:, c].to(t_knots.dtype) for c in range(4))
+
+
+def fd_mode_sum_uniform_pallas(
+    inp: FDKernelInputs,
+    f0: float,
+    df: float,
+    nf: int,
+    *,
+    bins_per_run: int = 64,
+    band_runs: int | None = None,
+    band_offsets: torch.Tensor | None = None,
+    interpret: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's Pallas-named banded FD summation -> 4 tensors (B, nf).
+
+    A thin wrapper with the reference's contract: one slot group (no
+    turnover or negative slots), the increasing branch of every slot with
+    its ``inc_live`` flag and (w1, w2) weights; windows of ``band_runs``
+    runs padded up to a multiple of 128; each walker's window starts taken
+    from ``band_offsets`` (k,) or, when None, from its slots' first knot
+    frequencies, then rounded down to 128-run boundaries and clipped to
+    [0, ceil(nf / bins_per_run)]. The dense pass is
+    `ops.fd_dense.fd_dense_accumulate`: the CUDA kernel on the card, its
+    plain version on the CPU. Outputs are cast to ``inp.t_knots``' dtype.
+    ``interpret`` is accepted for the reference's signature and ignored:
+    the device of ``inp`` decides.
+    """
+    del interpret
+    r = bins_per_run
+    g_total, g_band = _pallas_layout(nf, r, band_runs)
+    n_b, k = inp.m_sel.shape
+    if band_offsets is None:
+        f_first = inp.m_sel * inp.f_phi_knots[:, :1] + inp.n_sel * inp.f_r_knots[:, :1]
+        g0 = _to_int32(torch.floor((f_first - f0) / (r * df)))
+    else:
+        g0 = torch.as_tensor(band_offsets, device=inp.t_knots.device).expand(n_b, k)
+    return _pallas_sum(inp, _round_offsets(g0, g_total), f0, df, nf, r, g_band)
+
+
+def fd_mode_sum_uniform_pallas_batched(
+    inp_b: FDKernelInputs,
+    f0: float,
+    df: float,
+    nf: int,
+    *,
+    bins_per_run: int = 64,
+    band_runs: int | None = None,
+    band_offsets: torch.Tensor | None = None,
+    interpret: bool = False,
+):
+    """Walker-batched form of `fd_mode_sum_uniform_pallas` -> 4 tensors
+    (B, nf): the window starts are shared by the batch and must be given
+    (``band_offsets`` (k,), e.g. from `models.waveform.band_offsets_for`);
+    without them it raises ValueError, as the reference does. ``interpret``
+    is ignored, as there."""
+    del interpret
+    if band_offsets is None:
+        raise ValueError("batched pallas path requires shared band_offsets")
+    return fd_mode_sum_uniform_pallas(
+        inp_b, f0, df, nf, bins_per_run=bins_per_run, band_runs=band_runs,
+        band_offsets=band_offsets)
+
+
+__all__ = [
+    "FDKernelInputs",
+    "prepare_fd_inputs",
+    "fd_mode_sum",
+    "fd_mode_sum_uniform",
+    "fd_mode_sum_uniform_pallas",
+    "fd_mode_sum_uniform_pallas_batched",
+]

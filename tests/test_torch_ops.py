@@ -158,6 +158,13 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.cli.check_mode_by_mode\n"
         "import emri_frequencydomainwaveforms_tpu_torch.models.trajectory_quad\n"
         "import emri_frequencydomainwaveforms_tpu_torch.models.utility\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.stopping\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.relbin\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils.autocorr\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.utils.plotting\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'emri_frequencydomainwaveforms_tpu'))\n"
