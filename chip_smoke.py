@@ -32,8 +32,11 @@ batch's knots (`[backends]`: the Interp2D grid built on the card, a ROMAN
 network trained on it) and the reference's Pallas-named FD entry points on
 the batch's kernel inputs at full width (`[pallas-names]`); after the PE run,
 the Fisher set on the PE template at the injection (`[fisher]`, card and
-CPU), relative binning on a chirp (`[relbin]`) and the sampler diagnostics
-of the PE chain (`[diagnostics]`).
+CPU), relative binning on a chirp (`[relbin]`), the sampler diagnostics
+of the PE chain (`[diagnostics]`), the move library and the sampler's move
+schedule on the PE likelihood from the PE chain's last state (`[moves]`),
+and the TDI container and MLDC noise models on the PE injection and grid
+(`[tdi]`).
 Last it times the kernel on the dense-pass tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead. Every phase raises on
@@ -113,6 +116,16 @@ FISHER_STEP = 0.1
 # parameters, so the stencil cancels most of it
 FISHER_TOL = 1e-3
 RELBIN_WALKERS = 64
+# [moves]: the PE configuration at full width with its ensemble cut to 16
+# walkers x 2 temperatures (32 per likelihood call); the Gaussian widths of
+# the parameters outside [fisher]'s block, as a share of each prior's width;
+# stored vs fresh log L of the final walkers, relative
+MOVES_WALKERS, MOVES_TEMPS = 16, 2
+MOVES_WIDTH = 1e-7
+MOVES_SEED = 2602
+MOVES_LL_TOL = 1e-6
+# [tdi]: card vs CPU and tensor vs numpy, relative
+TDI_TOL = 1e-12
 
 
 T_START = time.perf_counter()
@@ -1107,6 +1120,8 @@ def drive_fisher(env, pe_run):
           f"{ident:.3e} (<= 1e-6); card vs CPU: template at the injection rel L2 {wave_err:.3e}, "
           f"Fisher max |dGamma_ij| / sqrt(Gamma_ii Gamma_jj) {diff.max():.3e} (<= {FISHER_TOL}); "
           f"on {card}", flush=True)
+    # the covariance for [moves], the template at the injection for [tdi]
+    return dict(cov=cov, h0=wf_card(q0))
 
 
 def drive_relbin(env):
@@ -1193,6 +1208,180 @@ def drive_diagnostics(env, pe_run):
           f"get_evidence_estimate log Z {logz:.6e} +- {dlogz:.3e}; walkers_independent {indep}; "
           f"AutoCorrelationStop -> {stop}; AdjustStretchProposalScale a {a0} -> {a1:.6f} "
           f"(acceptance {float(np.mean(sampler.acceptance_fraction)):.3f})", flush=True)
+
+
+def drive_moves(env, pe_run, fisher):
+    """The move library and the move schedule on the [pe] likelihood at full
+    width, from [pe]'s last state cut to MOVES_TEMPS x MOVES_WALKERS (its
+    stored log L and log prior, so the start costs no call): step 1 one
+    `CombineMove` of eight moves, steps 2-3 `DIMEMove` alone (its state
+    threaded through ``State.move_info``), step 4 the weighted schedule of
+    DIME and a Gaussian. Counts the dense-pass launches and keeps the tables
+    of the phase's first batched call."""
+    torch, card = env["torch"], env["card"]
+    fd_dense, summation_fd = env["fd_dense"], env["summation_fd"]
+    from emri_frequencydomainwaveforms_tpu_torch.inference import EnsembleSampler, make_state
+    from emri_frequencydomainwaveforms_tpu_torch.inference.backends.memory import Backend
+    from emri_frequencydomainwaveforms_tpu_torch.inference.moves import (
+        CombineMove, DelayedRejectionMove, DIMEMove, DIMEState, DistributionGenerate,
+        GaussianMove, GroupStretchMove, MTDistGenMove, MultiSourceFisherProposal)
+
+    out = pe_run["out"]
+    like, pe_sampler = out["likelihood"], out["sampler"]
+    prior, per = pe_sampler._prior, pe_sampler.periodic_vec
+    last = out["backend"].get_last_sample()
+    nt, nw = MOVES_TEMPS, MOVES_WALKERS
+    start = make_state(last.branches["emri"].coords[:nt, :nw], log_like=last.log_like[:nt, :nw],
+                       log_prior=last.log_prior[:nt, :nw], betas=last.betas[:nt],
+                       random_state=MOVES_SEED, name="emri")
+    friends = last.branches["emri"].coords[:, :, 0, :].reshape(-1, 6)
+    # [fisher]'s Cramer-Rao block, and (MOVES_WIDTH x the prior's width)^2 on
+    # the diagonal of the other parameters
+    cov = np.zeros((6, 6))
+    block = np.array(FISHER_PARAMS)
+    cov[np.ix_(block, block)] = 0.5 * (fisher["cov"] + fisher["cov"].T)
+    for i in sorted(set(range(6)) - set(FISHER_PARAMS)):
+        d = prior.priors_in[i]
+        cov[i, i] = (MOVES_WIDTH * (d.max_val - d.min_val)) ** 2
+
+    rows, seen, times, acc = [], {}, {}, {}
+
+    def logl(x):
+        rows.append(x.shape[0])
+        return like(x)
+
+    def keep_first(groups, *, r, nf):
+        key = "tables_1" if groups[0].pc.shape[0] == 1 else "tables"
+        seen.setdefault(key, (groups, r, nf))
+        seen[key + "_calls"] = seen.get(key + "_calls", 0) + 1
+        return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
+
+    def timed(name, move):
+        step = move.step
+
+        def run(coords, *a):
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), len(rows)
+            res = step(coords, *a)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0, len(rows) - n0, sum(rows[n0:]))
+            acc[name] = float(res[3].sum()) / (nt * nw)
+            return res
+
+        move.step = run
+        return move
+
+    def sampler(moves):
+        return EnsembleSampler(
+            nw, [6], logl, {"emri": prior}, moves=moves, backend=Backend(), branch_names=["emri"],
+            tempering_kwargs={"ntemps": nt, "betas": start.betas.numpy()}, seed=MOVES_SEED,
+            periodic={"emri": {i: float(p) for i, p in enumerate(per) if p > 0}})
+
+    step1 = [("Gaussian(cov)", GaussianMove(cov, periodic=per)),
+             ("MultiSourceFisherProposal(cov)", MultiSourceFisherProposal(cov, periodic=per)),
+             ("Gaussian DE", GaussianMove(cov, mode="DE", periodic=per)),
+             ("Gaussian AM", GaussianMove(cov, mode="AM", periodic=per)),
+             ("DistributionGenerate", DistributionGenerate(prior)),
+             ("DelayedRejection", DelayedRejectionMove(np.sqrt(np.diag(cov)), periodic=per)),
+             ("MTDistGen(num_try=2)", MTDistGenMove(prior, num_try=2)),
+             ("GroupStretch(128 friends)", GroupStretchMove(friends=friends, periodic=per))]
+    fd_dense.fd_dense_accumulate.launches = 0
+    samplers = []
+    with dense_function(summation_fd, keep_first):
+        s1 = sampler(CombineMove([timed(n, m) for n, m in step1]))
+        samplers.append(s1)
+        state = s1.run_mcmc(start, 1)
+        t0, n0 = time.perf_counter(), len(rows)
+        s2 = sampler(DIMEMove())
+        samplers.append(s2)
+        state = s2.run_mcmc(state._replace(move_info=None), 2)
+        torch.cuda.synchronize()
+        times["DIME x 2 steps"] = (time.perf_counter() - t0, len(rows) - n0, sum(rows[n0:]))
+        dime = state.move_info[0]
+        s3 = sampler([(DIMEMove(), 0.5), (GaussianMove(cov, periodic=per), 0.5)])
+        samplers.append(s3)
+        picked, select = [], s3._select_move
+        s3._select_move = lambda gen: picked.append(select(gen)) or picked[-1]
+        t0, n0 = time.perf_counter(), len(rows)
+        state = s3.run_mcmc(state._replace(move_info=(dime, None)), 1)
+        torch.cuda.synchronize()
+        times["schedule step"] = (time.perf_counter() - t0, len(rows) - n0, sum(rows[n0:]))
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    n_1, n_b = seen.get("tables_1_calls", 0), seen.get("tables_calls", 0)
+    check(launches > 0 and launches == n_1 + n_b and n_b > 0,
+          f"[moves] the moves launched the fd_dense kernel ({launches} = {n_1} + {n_b})")
+
+    # the stored chains, the acceptance, the carried DIME state
+    for s in samplers:
+        ll = s.get_log_like()
+        check(bool(np.isfinite(ll).all() and (ll > -1e300).all()),
+              f"[moves] every stored log L finite ({ll.min():.4e})")
+    fracs = list(acc.values()) + [float(np.mean(s.acceptance_fraction)) for s in samplers[1:]]
+    check(all(0.0 <= a <= 1.0 for a in fracs), f"[moves] acceptance {fracs} in [0, 1]")
+    check(isinstance(dime, DIMEState) and bool(torch.isfinite(dime.mean).all())
+          and bool(torch.isfinite(dime.cov).all()) and bool(torch.isfinite(dime.cumlweight)),
+          f"[moves] move_info after steps 2-3 holds a finite DIMEState ({dime.cumlweight})")
+    # the final walkers' stored log L against a fresh evaluation on the card
+    coords = state.branches["emri"].coords[:, :, 0, :].reshape(-1, 6)
+    fresh = like(coords).double().cpu().numpy().reshape(nt, nw)
+    stored = state.log_like.numpy()
+    rel = float(np.max(np.abs(fresh - stored) / np.abs(stored)))
+    check(rel <= MOVES_LL_TOL, f"[moves] stored vs fresh log L rel {rel:.3e} <= {MOVES_LL_TOL}")
+    per_move = "; ".join(f"{n} {t:.2f} s ({c} calls, {r} walkers, acceptance {acc[n]:.3f})"
+                         if n in acc else f"{n} {t:.2f} s ({c} calls, {r} walkers)"
+                         for n, (t, c, r) in times.items())
+    print(f"[moves] from [pe]'s last state cut to {nt} temperatures x {nw} walkers ({PE_ARGS}): "
+          f"step 1 CombineMove of {len(step1)} moves, steps 2-3 DIMEMove, step 4 the schedule "
+          f"[(DIMEMove, 0.5), (Gaussian(cov), 0.5)] drew move {picked[0]}; {per_move}; "
+          f"{len(rows)} likelihood calls ({sum(rows)} walkers), fd_dense launches {launches} "
+          f"({n_1} at B = 1, {n_b} batched); every stored log L finite, acceptance in [0, 1], "
+          f"DIMEState cumlweight {float(dime.cumlweight):.6e} (finite); final stored vs fresh "
+          f"log L max rel {rel:.3e} (<= {MOVES_LL_TOL}); host clock, synchronized; on {card}",
+          flush=True)
+    return dict(tables=seen["tables"], launches=n_b)
+
+
+def drive_tdi(env, pe_run, fisher):
+    """`lisa.tdi.TDIf` on the [pe] injection's channels (the PE template at
+    the truth, from [fisher]) on the card against the CPU, and `lisa.mldc` on
+    a card tensor of the PE grid against numpy input. No likelihood call."""
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    from emri_frequencydomainwaveforms_tpu_torch.lisa import mldc
+    from emri_frequencydomainwaveforms_tpu_torch.lisa.tdi import TDIf
+
+    f = pe_run["out"]["f_arr"]
+    a, e = fisher["h0"][:2]
+    # a second triple with the channels' phases turned, for a cross product
+    # with an imaginary part and a nonzero residual
+    turn = (complex(np.exp(0.1j)), complex(np.exp(-0.2j)))
+    d, h = TDIf.from_aet(f, a, e, 0), TDIf.from_aet(f, a * turn[0], e * turn[1], 0)
+    d_c = TDIf.from_aet(f, a.cpu(), e.cpu(), 0)
+    h_c = TDIf.from_aet(f, a.cpu() * turn[0], e.cpu() * turn[1], 0)
+    check(d.A.device == dev and d.A.dtype == torch.complex128, f"[tdi] channels on {d.A.device}")
+    worst = {}
+    for name, got, ref in (("normsq", d.normsq(), d_c.normsq()),
+                           ("cprod re", d.cprod(h)[0], d_c.cprod(h_c)[0]),
+                           ("cprod im", d.cprod(h)[1], d_c.cprod(h_c)[1]),
+                           ("logL", d.logL(h), d_c.logL(h_c))):
+        got, ref = float(got), float(ref)
+        worst[name] = abs(got - ref) / abs(ref)
+    self_ll = float(d.logL(d))
+    f_t = torch.as_tensor(f, device=dev)
+    for name, fn in (("mldc_noisepsd_X", mldc.mldc_noisepsd_X),
+                     ("mldc_noisepsd_AE", mldc.mldc_noisepsd_AE),
+                     ("mldc_noisepsd_T", mldc.mldc_noisepsd_T),
+                     ("mldc_lisanoise", mldc.mldc_lisanoise)):
+        got, ref = fn(f_t), fn(f)
+        check(got.device == dev and got.dtype == torch.float64, f"[tdi] {name} on {got.device}")
+        worst[name] = float(np.max(np.abs(got.cpu().numpy() - ref) / np.abs(ref)))
+    summary = ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+    check(all(v <= TDI_TOL for v in worst.values()), f"[tdi] {summary} <= {TDI_TOL}")
+    check(self_ll == 0.0, f"[tdi] logL of the injection against itself {self_ll} == 0")
+    print(f"[tdi] TDIf.from_aet of the [pe] injection ({len(f)} bins, A = the template's first "
+          f"channel, E its second, T = 0) on {d.A.device}: normsq {float(d.normsq()):.6e}, logL "
+          f"against itself exactly {self_ll}; card vs CPU and card tensor vs numpy, max rel: "
+          f"{summary} (<= {TDI_TOL}); on {card}", flush=True)
 
 
 def main() -> None:
@@ -1458,15 +1647,20 @@ def main() -> None:
 
     phase_done("pe")
     # ---- the Fisher set on the PE template, relative binning, the sampler diagnostics ----
-    drive_fisher(env, pe)
+    fisher = drive_fisher(env, pe)
     phase_done("fisher")
     drive_relbin(env)
     phase_done("relbin")
     drive_diagnostics(env, pe)
-    del pe["out"]
+    phase_done("diagnostics")
+    # ---- the move library and its schedule, the TDI / MLDC layer, on the PE likelihood ----
+    moves = drive_moves(env, pe, fisher)
+    phase_done("moves")
+    drive_tdi(env, pe, fisher)
+    del pe["out"], fisher
     torch.cuda.empty_cache()
 
-    phase_done("diagnostics")
+    phase_done("tdi")
     # ---- phase 8: the kernel on the main paths' own tables ----
     records = []
     for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
@@ -1476,6 +1670,7 @@ def main() -> None:
         (rwz["tables_1"], "fd_dense_accumulate[rwz]", 99, rwz["launches_1"], 100),
         (pe["tables"], "fd_dense_accumulate_batched[pe]", 203, pe["launches"], 10),
         (pe["tables_1"], "fd_dense_accumulate[pe]", 99, pe["launches_1"], 100),
+        (moves["tables"], "fd_dense_accumulate_batched[moves]", 203, moves["launches"], 10),
         (quad["tables"], "fd_dense_accumulate_batched[quad]", 203, quad["launches"], 10),
         (scan["tables"], "fd_dense_accumulate[scan]", 99, scan["launches"], 10),
         (pallas["tables"], "fd_dense_accumulate_batched[pallas-names]", 203, pallas["launches"], 10),

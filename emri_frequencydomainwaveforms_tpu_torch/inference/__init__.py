@@ -1,10 +1,16 @@
-"""Ensemble MCMC: the tempered stretch-move sampler, priors, state, chain
-backends and the stopping / update hooks (single branch, fixed dimension)."""
+"""Ensemble MCMC: the tempered sampler and its move schedule, the moves,
+priors, state, chain backends and the stopping / update hooks (single
+branch, fixed dimension)."""
 
 from .backends.hdf import HDFBackend, TempHDFBackend
 from .backends.memory import Backend
 from .ensemble import EnsembleSampler
-from .moves.stretch import StretchMove
+from .moves.distgen import DistributionGenerate
+from .moves.gaussian import GaussianMove, MHMove
+from .moves.gb import MultiSourceFisherProposal, PTRedBlueMove, SkyMove
+from .moves.group import CombineMove, DelayedRejectionMove, GroupStretchMove
+from .moves.mt import MTDistGenMove
+from .moves.stretch import DIMEMove, StretchMove
 from .moves.tempering import TemperatureControl, make_ladder
 from .prior import (
     MappedUniformDistribution,
@@ -24,6 +30,9 @@ from .stopping import (
 __all__ = [
     "EnsembleSampler",
     "StretchMove",
+    "GaussianMove",
+    "MHMove",
+    "DistributionGenerate",
     "TemperatureControl",
     "make_ladder",
     "ProbDistContainer",

@@ -1,21 +1,25 @@
 """Tempered ensemble sampler, single branch, fixed dimension.
 
-Counterpart of the ``emri_pe`` path of
+Counterpart of the single-branch path of
 ``emri_frequencydomainwaveforms_tpu.inference.ensemble.EnsembleSampler``:
 construction, `compute_log_prior`, `compute_log_like` (NaN -> -1e300, and
--1e300 outside the prior), one iteration `_step` (the stretch move, the
+-1e300 outside the prior), the move schedule (one move, a list, or
+``(move, weight)`` pairs), one iteration `_step` (the scheduled move, the
 temperature swap cascade, the ladder adaptation), `sample`, `run_mcmc` with
 burn-in and stopping / update hooks (`inference.stopping`), the getters and
 the diagnostics `get_autocorr_time` and `walkers_independent`. The
-multi-branch and reversible-jump configurations
-(``nleaves_max > 1``, several branches, ``rj_moves``) and move schedules
-are not ported.
+multi-branch and reversible-jump configurations (``nleaves_max > 1``,
+several branches, ``rj_moves``, a `GaussianMove` with a covariance per
+branch) are not ported.
 
 The sampler's state lives on the CPU in float64; ``log_like_fn`` gets the
 (n, ndim) walkers there and may return its (n,) values from any device.
 Each iteration draws from a ``torch.Generator`` seeded with the state's
-``random_state``, and its last draw seeds the next iteration, so a run is
-fixed by ``seed`` (and resumes exactly from a stored state).
+``random_state`` (the scheduled move's index when there are several moves,
+then the move's draws, then the swaps'), and its last draw seeds the next
+iteration, so a run is fixed by ``seed`` (and resumes exactly from a stored
+state). A stateful move (`moves.stretch.DIMEMove`) carries its adaptation
+state in ``State.move_info``, a tuple aligned with ``self.moves``.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ class EnsembleSampler:
     """Parallel-tempered ensemble MCMC over one fixed-dimension branch.
 
     Arguments as in the reference. ``moves``: one move (default
-    `StretchMove`); ``tempering_kwargs``: `TemperatureControl` arguments with
+    `StretchMove`), a list of moves (equal weights) or of ``(move, weight)``
+    pairs; ``tempering_kwargs``: `TemperatureControl` arguments with
     ``ntemps``; ``periodic``: {branch: {index: period}} or {index: period};
     ``backend``: a `Backend`, an `HDFBackend` or a file name; ``seed``: the
     first iteration's seed.
@@ -85,7 +90,11 @@ class EnsembleSampler:
             self.ndims = {branch_names[0]: int(ndims)}
         self.branch_names = list(branch_names)
         leaves = nleaves_max.values() if isinstance(nleaves_max, dict) else [nleaves_max]
-        if len(self.branch_names) > 1 or any(int(v) > 1 for v in leaves) or rj_moves:
+        pairs = [m if isinstance(m, tuple) else (m, 1.0)
+                 for m in (moves if isinstance(moves, (list, tuple)) else [moves])]
+        per_branch_cov = any(getattr(m, "cov_dict", None) is not None for m, _ in pairs)
+        if (len(self.branch_names) > 1 or any(int(v) > 1 for v in leaves) or rj_moves
+                or per_branch_cov):
             raise NotImplementedError(
                 "multi-branch / reversible-jump sampling is not ported: use the JAX package's "
                 "inference.ensemble.EnsembleSampler (its _step_tree / _sample_tree path)"
@@ -111,14 +120,16 @@ class EnsembleSampler:
                 per_vec[int(idx)] = float(p)
         self.periodic_vec = per_vec
 
-        if isinstance(moves, (list, tuple)):
-            raise NotImplementedError(
-                "move schedules are not ported (only StretchMove is): use the JAX package's "
-                "inference.ensemble.EnsembleSampler"
-            )
-        self.move = moves if moves is not None else StretchMove(periodic=per_vec)
-        if getattr(self.move, "periodic", None) is None:
-            self.move.periodic = per_vec
+        if moves is None:
+            pairs = [(StretchMove(periodic=per_vec), 1.0)]
+        self.moves = [m for m, _ in pairs]
+        w = np.array([float(wt) for _, wt in pairs])
+        self.move_weights = w / w.sum()
+        for m in self.moves:
+            if getattr(m, "periodic", None) is None:
+                m.periodic = per_vec
+        # the first move is the one the stopping hooks adjust
+        self.move = self.moves[0]
 
         if isinstance(backend, str):
             from .backends.hdf import HDFBackend
@@ -172,12 +183,30 @@ class EnsembleSampler:
         return ll.reshape(coords.shape[:-1])
 
     # ---- one iteration ----
-    def _step(self, coords, log_like, log_prior, betas, seed: int, iteration: int):
+    def _select_move(self, generator) -> int:
+        """The index of this iteration's move, drawn with ``self.move_weights``
+        from one uniform (no draw with a single move)."""
+        if len(self.moves) == 1:
+            return 0
+        u = float(torch.rand((), generator=generator, dtype=torch.float64))
+        return min(int(np.searchsorted(np.cumsum(self.move_weights), u, side="right")),
+                   len(self.moves) - 1)
+
+    def _step(self, coords, log_like, log_prior, betas, seed: int, iteration: int,
+              move_info=None):
         """One iteration from ``seed``: returns (coords, log_like, log_prior,
-        betas, next seed, accepted per temperature, swap acceptance)."""
+        betas, next seed, accepted per temperature, swap acceptance,
+        move_info)."""
         gen = torch.Generator().manual_seed(int(seed))
-        coords, log_like, log_prior, n_acc = self.move.propose(
-            gen, coords, log_like, log_prior, betas, self._logp, self._logl)
+        j = self._select_move(gen)
+        move = self.moves[j]
+        if move_info is not None and move_info[j] is not None:
+            coords, log_like, log_prior, n_acc, ms = move.propose_stateful(
+                gen, coords, log_like, log_prior, betas, self._logp, self._logl, move_info[j])
+            move_info = move_info[:j] + (ms,) + move_info[j + 1:]
+        else:
+            coords, log_like, log_prior, n_acc = move.propose(
+                gen, coords, log_like, log_prior, betas, self._logp, self._logl)
         tc = self.temperature_control
         if self.ntemps > 1:
             coords, log_like, log_prior, swap_frac = tc.temperature_swaps(
@@ -186,7 +215,7 @@ class EnsembleSampler:
         else:
             swap_frac = torch.zeros((0,), dtype=torch.float64)
         next_seed = int(torch.randint(0, _SEED_BOUND, (1,), generator=gen))
-        return coords, log_like, log_prior, betas, next_seed, n_acc, swap_frac
+        return coords, log_like, log_prior, betas, next_seed, n_acc, swap_frac, move_info
 
     # ---- public API ----
     def run_mcmc(self, initial_state, nsteps: int, burn: int = 0, thin_by: int = 1,
@@ -206,15 +235,21 @@ class EnsembleSampler:
         coords = state.branches[self.branch_name].coords[:, :, 0, :]
         log_like, log_prior, betas = state.log_like, state.log_prior, state.betas
         seed = state.random_state
+        move_info = state.move_info
+        if move_info is None:
+            move_info = tuple(m.init_move_state(*coords.shape) if hasattr(m, "init_move_state")
+                              else None for m in self.moves)
         it0 = self.backend.iteration * thin_by
         for i in range(iterations):
             for _ in range(thin_by):
-                coords, log_like, log_prior, betas, seed, n_acc, swap_frac = self._step(
-                    coords, log_like, log_prior, betas, seed, it0 + i)
+                (coords, log_like, log_prior, betas, seed, n_acc, swap_frac,
+                 move_info) = self._step(coords, log_like, log_prior, betas, seed, it0 + i,
+                                         move_info)
             state = State(
                 branches={self.branch_name: state.branches[self.branch_name]._replace(
                     coords=coords[:, :, None, :])},
                 log_like=log_like, log_prior=log_prior, betas=betas, random_state=seed,
+                move_info=move_info,
             )
             if store:
                 self.backend.save_step(state, n_acc, swap_frac=swap_frac)
@@ -252,6 +287,7 @@ class EnsembleSampler:
         return State(
             branches=st.branches, log_like=ll, log_prior=lp, betas=betas,
             random_state=st.random_state if st.random_state is not None else self.seed,
+            move_info=st.move_info,
         )
 
     # ---- accessors ----

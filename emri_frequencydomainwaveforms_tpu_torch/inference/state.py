@@ -6,7 +6,9 @@ sampler: float64 CPU tensors, with coords (ntemps, nwalkers, nleaves_max,
 ndim) and a boolean leaf mask ``inds``. ``random_state`` holds the integer
 seed of the sampler's next iteration (`ensemble.EnsembleSampler` draws each
 iteration from a ``torch.Generator`` seeded with it), where the reference
-holds a JAX PRNG key.
+holds a JAX PRNG key. ``move_info`` carries the moves' adaptation state
+(`moves.stretch.DIMEState`) from one iteration to the next; the backends do
+not store it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ class State(NamedTuple):
     betas: torch.Tensor  # (ntemps,)
     random_state: int | None
     blobs: Any = None
+    # per-move adaptation state: a tuple aligned with the sampler's moves,
+    # None for the stateless ones
+    move_info: Any = None
 
     @property
     def branches_coords(self):

@@ -1,5 +1,6 @@
-"""LISA layer: sensitivity curves, noise, inner products, the Fisher /
-Cramer-Rao diagnostics, the whitened likelihood and relative binning."""
+"""LISA layer: sensitivity curves, the legacy MLDC noise models, the TDI
+container, noise, inner products, the Fisher / Cramer-Rao diagnostics, the
+whitened likelihood and relative binning."""
 
 from .diagnostic import (
     covariance,
@@ -15,6 +16,21 @@ from .diagnostic import (
     vallisneri_criterion_cdf,
 )
 from .likelihood import Likelihood
+from .mldc import (
+    MLDCModel,
+    PhinneyBackground,
+    galconf,
+    make_wd_noise,
+    mldc_lisanoise,
+    mldc_lisanoises,
+    mldc_model,
+    mldc_noisepsd_AE,
+    mldc_noisepsd_T,
+    mldc_noisepsd_X,
+    mldc_simplesnr,
+    sgal,
+    simplesnr,
+)
 from .noise import generate_noise_fd
 from .relbin import RelativeBinningLikelihood
 from .sensitivity import (
@@ -29,6 +45,7 @@ from .sensitivity import (
     noisepsd_X2,
     sensitivity_from_table,
 )
+from .tdi import TDIf
 
 __all__ = [
     "inner_product",
@@ -54,5 +71,19 @@ __all__ = [
     "noisepsd_AE2",
     "noisepsd_T",
     "AET",
+    "TDIf",
+    "MLDCModel",
+    "PhinneyBackground",
+    "mldc_model",
+    "mldc_lisanoises",
+    "mldc_lisanoise",
+    "mldc_noisepsd_X",
+    "mldc_noisepsd_AE",
+    "mldc_noisepsd_T",
+    "mldc_simplesnr",
+    "simplesnr",
+    "sgal",
+    "galconf",
+    "make_wd_noise",
     "sensitivity_from_table",
 ]

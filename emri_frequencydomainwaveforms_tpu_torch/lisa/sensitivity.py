@@ -29,7 +29,14 @@ class _TorchMath:
     tanh = staticmethod(torch.tanh)
     sqrt = staticmethod(torch.sqrt)
     log = staticmethod(torch.log)
+    log10 = staticmethod(torch.log10)
     clip = staticmethod(torch.clamp)
+    where = staticmethod(torch.where)
+    zeros_like = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def minimum(a, b):
+        return torch.minimum(a, torch.as_tensor(b, dtype=a.dtype, device=a.device))
 
 
 def _xp(f):

@@ -362,9 +362,6 @@ def test_package_exports_match_reference():
 # does not have yet, each with the ROADMAP Queue 1 item that ports it.
 NOT_YET_PORTED = {
     "inference": {
-        "GaussianMove": "item 6, the other moves",
-        "MHMove": "item 6, the other moves",
-        "DistributionGenerate": "item 6, the other moves",
         "DistributionGenerateRJ": "item 7, RJ",
         "MTDistGenMoveRJ": "item 7, RJ",
         "DelayedRejectionRJ": "item 7, RJ",
@@ -372,11 +369,6 @@ NOT_YET_PORTED = {
     },
     "lisa": {
         "GlobalLikelihood": "item 7, GlobalLikelihood",
-        "TDIf": "item 8, tdi",
-        **{name: "item 8, mldc" for name in (
-            "MLDCModel", "PhinneyBackground", "mldc_model", "mldc_lisanoises", "mldc_lisanoise",
-            "mldc_noisepsd_X", "mldc_noisepsd_AE", "mldc_noisepsd_T", "mldc_simplesnr",
-            "simplesnr", "sgal", "galconf", "make_wd_noise")},
     },
     "utils": {},
 }

@@ -25,6 +25,7 @@ from emri_frequencydomainwaveforms_tpu_torch.inference import prior as t_prior
 from emri_frequencydomainwaveforms_tpu_torch.inference.backends.hdf import HDFBackend
 from emri_frequencydomainwaveforms_tpu_torch.inference.backends.memory import Backend
 from emri_frequencydomainwaveforms_tpu_torch.inference.ensemble import EnsembleSampler
+from emri_frequencydomainwaveforms_tpu_torch.inference.moves import GaussianMove
 from emri_frequencydomainwaveforms_tpu_torch.inference.moves import stretch as t_stretch
 from emri_frequencydomainwaveforms_tpu_torch.inference.moves import tempering as t_temp
 from emri_frequencydomainwaveforms_tpu_torch.utils.periodic import PeriodicContainer as TPeriodic
@@ -289,7 +290,9 @@ def test_reads_a_jax_written_chain_file(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(nleaves_max=2), dict(rj_moves=True),
-                                dict(moves=[t_stretch.StretchMove(), t_stretch.StretchMove(a=3.0)])])
+                                dict(moves=GaussianMove({"model_0": np.eye(NDIM)}))])
 def test_multibranch_is_refused(kw):
+    # a covariance per branch is a multi-branch move (move lists run as
+    # schedules: tests/test_torch_moves.py)
     with pytest.raises(NotImplementedError, match="JAX package"):
         EnsembleSampler(8, [NDIM], _ll_t, {"model_0": _priors(t_prior)}, **kw)

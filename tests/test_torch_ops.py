@@ -160,6 +160,14 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.models.utility\n"
         "import emri_frequencydomainwaveforms_tpu_torch.inference\n"
         "import emri_frequencydomainwaveforms_tpu_torch.inference.stopping\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.gaussian\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.distgen\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.group\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.mt\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.gb\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.tdi\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.lisa.mldc\n"
         "import emri_frequencydomainwaveforms_tpu_torch.lisa\n"
         "import emri_frequencydomainwaveforms_tpu_torch.lisa.relbin\n"
         "import emri_frequencydomainwaveforms_tpu_torch.utils\n"
