@@ -35,8 +35,11 @@ the Fisher set on the PE template at the injection (`[fisher]`, card and
 CPU), relative binning on a chirp (`[relbin]`), the sampler diagnostics
 of the PE chain (`[diagnostics]`), the move library and the sampler's move
 schedule on the PE likelihood from the PE chain's last state (`[moves]`),
-and the TDI container and MLDC noise models on the PE injection and grid
-(`[tdi]`).
+the multi-branch / reversible-jump sampler on a two-source EMRI
+`GlobalLikelihood` over the PE template (`[rj]`: tree stretch, prior-draw
+RJ birth / death and tree swaps, then the lifted tree Gaussian and the
+multiple-try RJ move), and the TDI container and MLDC noise models on the
+PE injection and grid (`[tdi]`).
 Last it times the kernel on the dense-pass tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead. Every phase raises on
@@ -124,6 +127,18 @@ MOVES_WALKERS, MOVES_TEMPS = 16, 2
 MOVES_WIDTH = 1e-7
 MOVES_SEED = 2602
 MOVES_LL_TOL = 1e-6
+# [rj]: the PE configuration at full width, one "emri" branch of 1 or 2
+# sources, the ensemble cut to 8 walkers x 2 temperatures; walkers 4-7 start
+# with a second source drawn from the prior with this seed
+RJ_WALKERS, RJ_TEMPS = 8, 2
+RJ_SEED = 2603
+# GlobalLikelihood against the PE Likelihood on the same rows in the same
+# batch, relative (one source per group: the same arithmetic). Across
+# batches a walker's log L moves by up to ~1e-3 relative on the card: its
+# dp5 step sequence depends on the batch (PERF.md section 7), so [rj] holds
+# each stored log L to the value computed for that walker's sources, and
+# prints the other comparisons
+RJ_SAME_BATCH_TOL = 1e-12
 # [tdi]: card vs CPU and tensor vs numpy, relative
 TDI_TOL = 1e-12
 
@@ -1339,6 +1354,185 @@ def drive_moves(env, pe_run, fisher):
           f"DIMEState cumlweight {float(dime.cumlweight):.6e} (finite); final stored vs fresh "
           f"log L max rel {rel:.3e} (<= {MOVES_LL_TOL}); host clock, synchronized; on {card}",
           flush=True)
+    return dict(tables=seen["tables"], launches=n_b, cov=cov)
+
+
+def drive_rj(env, pe_run, moves):
+    """The multi-branch / reversible-jump sampler on the [pe] template at
+    full width: one "emri" branch of up to 2 sources (at least 1) under a
+    `GlobalLikelihood` that sums each walker's sources (the walker index is
+    the group), [pe]'s injection and prior, the ensemble cut to RJ_TEMPS x
+    RJ_WALKERS. Leaf 0 comes from [pe]'s last state; walkers 4-7 also hold a
+    second source drawn from the prior. Step 1: `TreeStretchMove`, the
+    prior-draw `DistributionGenerateRJ` (``rj_moves=True``) and the tree
+    swaps; step 2: [moves]' `GaussianMove(cov)` lifted to a
+    `TreeGaussianMove`, and `MTDistGenMoveRJ(num_try=2)`. Counts the
+    dense-pass launches and keeps the tables of the phase's first batched
+    call."""
+    torch, card = env["torch"], env["card"]
+    fd_dense, summation_fd = env["fd_dense"], env["summation_fd"]
+    from emri_frequencydomainwaveforms_tpu_torch.inference import EnsembleSampler, make_state
+    from emri_frequencydomainwaveforms_tpu_torch.inference.backends.memory import Backend
+    from emri_frequencydomainwaveforms_tpu_torch.inference.moves import (
+        GaussianMove, MTDistGenMoveRJ, TreeStretchMove)
+    from emri_frequencydomainwaveforms_tpu_torch.lisa import GlobalLikelihood
+
+    out, args = pe_run["out"], pe_run["args"]
+    like, prior = out["likelihood"], out["sampler"]._prior
+    last = out["backend"].get_last_sample()
+    nt, nw = RJ_TEMPS, RJ_WALKERS
+    glike = GlobalLikelihood(like.template_model, 2, f_arr=out["f_arr"],
+                             parameter_transforms=like.transform, subset=args.subset)
+    glike.inject_signal(out["data"], noise_fn=out["noise_fn"])
+
+    rows, seen, times, acc, computed = [], {}, {}, {}, {}
+
+    def sources(c, i):
+        """The key of one walker's active sources (2, 6) / (2,)."""
+        return c[i].numpy().tobytes()
+
+    def tree_ll(coords, inds):
+        """(T', W', 2, 6) sources and their (T', W', 2) mask -> (T', W')
+        log L: the active sources as rows, one GlobalLikelihood call. Each
+        walker's value is kept under its sources."""
+        shape = inds.shape[:2]
+        c, i = coords.reshape(-1, 2, 6), inds.reshape(-1, 2)
+        walker, leaf = torch.nonzero(i, as_tuple=True)
+        check(torch.unique(walker).numel() == i.shape[0], "[rj] every evaluated walker holds a source")
+        params = c[walker, leaf]
+        rows.append(params.shape[0])
+        ll = glike.get_ll(params, groups=walker).double().cpu()
+        for k in range(i.shape[0]):
+            computed.setdefault(sources(c[k], i[k]), []).append(float(ll[k]))
+        return ll.reshape(shape)
+
+    def keep_first(groups, *, r, nf):
+        key = "tables_1" if groups[0].pc.shape[0] == 1 else "tables"
+        seen.setdefault(key, (groups, r, nf))
+        seen[key + "_calls"] = seen.get(key + "_calls", 0) + 1
+        return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
+
+    def timed(name, obj, attr):
+        fn = getattr(obj, attr)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), len(rows)
+            res = fn(*a)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0, len(rows) - n0, sum(rows[n0:]))
+            acc[name] = float(res[4].sum()) / (nt * nw)
+            return res
+
+        setattr(obj, attr, run)
+
+    def sampler(moves_, rj_moves):
+        return EnsembleSampler(
+            nw, {"emri": 6}, tree_ll, {"emri": prior}, moves=moves_, rj_moves=rj_moves,
+            nleaves_max={"emri": 2}, nleaves_min={"emri": 1}, backend=Backend(),
+            branch_names=["emri"], tempering_kwargs={"ntemps": nt, "betas": last.betas[:nt].numpy()},
+            seed=RJ_SEED)
+
+    # leaf 0 from [pe]'s last state; a prior draw as leaf 1 of walkers 4-7,
+    # the truth as the placeholder of the inactive ones
+    coords = np.zeros((nt, nw, 2, 6))
+    coords[:, :, 0] = last.branches["emri"].coords[:nt, :nw, 0].numpy()
+    coords[:, :, 1] = out["truth"]
+    coords[:, nw // 2:, 1] = prior.rvs(size=(nt, nw - nw // 2), random_state=RJ_SEED)
+    inds = np.zeros((nt, nw, 2), dtype=bool)
+    inds[:, :, 0] = True
+    inds[:, nw // 2:, 1] = True
+    start = make_state({"emri": coords}, inds={"emri": inds}, betas=last.betas[:nt],
+                       random_state=RJ_SEED)
+
+    fd_dense.fd_dense_accumulate.launches = 0
+    samplers = []
+    with dense_function(summation_fd, keep_first):
+        s1 = sampler(TreeStretchMove(), True)
+        samplers.append(s1)
+        timed("TreeStretch", s1.move, "propose")
+        timed("DistributionGenerateRJ", s1.rj_moves[0], "propose_tree")
+        # the start: log L 0, so one call on every walker
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = s1._coerce_state(start)
+        torch.cuda.synchronize()
+        times["start"] = (time.perf_counter() - t0, len(rows), sum(rows))
+        start_ll = state.log_like.clone()
+        state = s1.run_mcmc(state, 1)
+        s2 = sampler(GaussianMove(moves["cov"]),
+                     [MTDistGenMoveRJ(prior, num_try=2, nleaves_min=1, nleaves_max=2)])
+        samplers.append(s2)
+        timed("TreeGaussian(cov)", s2.move, "propose")
+        timed("MTDistGenRJ(num_try=2)", s2.rj_moves[0], "propose_tree")
+        state = s2.run_mcmc(state, 1)
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    n_1, n_b = seen.get("tables_1_calls", 0), seen.get("tables_calls", 0)
+    check(launches > 0 and launches == n_1 + n_b and n_b > 0,
+          f"[rj] the tree sampler launched the fd_dense kernel ({launches} = {n_1} + {n_b})")
+    check(type(s1.move).__name__ == "TreeStretchMove"
+          and type(s2.move).__name__ == "TreeGaussianMove"
+          and type(s1.rj_moves[0]).__name__ == "DistributionGenerateRJ",
+          f"[rj] move types {type(s1.move).__name__}, {type(s2.move).__name__}, "
+          f"{type(s1.rj_moves[0]).__name__}")
+
+    # the start's one-source walkers: against [pe]'s stored log L, and
+    # against the PE Likelihood on the same rows in the same batch
+    one = slice(0, nw // 2)
+    stored_pe = last.log_like[:nt, :nw].numpy()[:, one]
+    rel_pe = float(np.max(np.abs(start_ll.numpy()[:, one] - stored_pe) / np.abs(stored_pe)))
+    # the start call's rows, in its order (walker-major, leaf-minor)
+    per_row = like(torch.from_numpy(coords[inds])).double().cpu().numpy()
+    first_rows = np.concatenate([[0], np.cumsum(inds.reshape(-1, 2).sum(-1))[:-1]])
+    same = per_row[first_rows].reshape(nt, nw)[:, one]
+    rel_same = float(np.max(np.abs(start_ll.numpy()[:, one] - same) / np.abs(same)))
+    check(rel_same <= RJ_SAME_BATCH_TOL,
+          f"[rj] GlobalLikelihood vs Likelihood, same rows and batch, rel {rel_same:.3e} "
+          f"<= {RJ_SAME_BATCH_TOL}")
+
+    # the stored chains: finite log L, 1 or 2 sources, acceptances in [0, 1]
+    fracs = dict(acc)
+    for k, s in enumerate(samplers, 1):
+        ll = s.get_log_like()
+        check(bool(np.isfinite(ll).all() and (ll > -1e300).all()),
+              f"[rj] step {k}: every stored log L finite ({ll.min():.4e})")
+        nl = s.get_nleaves()["emri"]
+        check(bool(((nl >= 1) & (nl <= 2)).all()),
+              f"[rj] step {k}: every stored walker holds 1 or 2 sources ({nl.min()}-{nl.max()})")
+        fracs[f"step {k} acceptance"] = float(np.mean(s.acceptance_fraction))
+        fracs[f"step {k} rj acceptance"] = float(np.mean(s.backend.rj_acceptance_fraction))
+    check(all(0.0 <= a <= 1.0 for a in fracs.values()), f"[rj] acceptances {fracs} in [0, 1]")
+    # the accept and swap bookkeeping: each final walker's stored log L is
+    # the value some call of the phase computed for exactly its sources;
+    # then a fresh evaluation on the card (another batch)
+    final_c = state.branches["emri"].coords.reshape(-1, 2, 6)
+    final_inds = state.branches["emri"].inds
+    stored = state.log_like.numpy()
+    owned = [float(v) in computed.get(sources(final_c[k], final_inds.reshape(-1, 2)[k]), [])
+             for k, v in enumerate(stored.reshape(-1))]
+    check(all(owned), f"[rj] every stored log L was computed for its walker's sources "
+                      f"({sum(owned)} of {len(owned)})")
+    fresh = tree_ll(final_c[None], final_inds.reshape(1, nt * nw, 2)).numpy().reshape(nt, nw)
+    rel = float(np.max(np.abs(fresh - stored) / np.abs(stored)))
+
+    before = np.bincount(inds.sum(-1).ravel(), minlength=3)[1:]
+    after = np.bincount(final_inds.sum(-1).numpy().ravel(), minlength=3)[1:]
+    per_move = "; ".join(f"{n} {t:.2f} s ({c} calls, {r} rows"
+                         + (f", acceptance {acc[n]:.3f})" if n in acc else ")")
+                         for n, (t, c, r) in times.items())
+    print(f"[rj] from [pe]'s last state cut to {nt} temperatures x {nw} walkers ({PE_ARGS}), "
+          f"one branch of 1-2 sources through GlobalLikelihood: step 1 TreeStretchMove + "
+          f"DistributionGenerateRJ + tree swaps, step 2 GaussianMove(cov) as TreeGaussianMove + "
+          f"MTDistGenMoveRJ(num_try=2); {per_move}; {len(rows)} likelihood calls "
+          f"({sum(rows)} rows), fd_dense launches {launches} ({n_1} at B = 1, {n_b} batched); "
+          f"walkers with 1 / 2 sources {before[0]} / {before[1]} before, {after[0]} / {after[1]} "
+          f"after; {', '.join(f'{k} {v:.3f}' for k, v in fracs.items())}; start log L of the "
+          f"one-source walkers vs the PE Likelihood on the same batch max rel {rel_same:.3e} (<= "
+          f"{RJ_SAME_BATCH_TOL}), vs [pe]'s stored values (other batches) {rel_pe:.3e}; every "
+          f"stored log L finite, 1-2 sources, acceptances in [0, 1], each the value computed for "
+          f"its walker's sources; final stored vs a fresh evaluation (another batch) max rel "
+          f"{rel:.3e}; host clock, synchronized; on {card}", flush=True)
     return dict(tables=seen["tables"], launches=n_b)
 
 
@@ -1656,6 +1850,8 @@ def main() -> None:
     # ---- the move library and its schedule, the TDI / MLDC layer, on the PE likelihood ----
     moves = drive_moves(env, pe, fisher)
     phase_done("moves")
+    rj = drive_rj(env, pe, moves)
+    phase_done("rj")
     drive_tdi(env, pe, fisher)
     del pe["out"], fisher
     torch.cuda.empty_cache()
@@ -1671,6 +1867,7 @@ def main() -> None:
         (pe["tables"], "fd_dense_accumulate_batched[pe]", 203, pe["launches"], 10),
         (pe["tables_1"], "fd_dense_accumulate[pe]", 99, pe["launches_1"], 100),
         (moves["tables"], "fd_dense_accumulate_batched[moves]", 203, moves["launches"], 10),
+        (rj["tables"], "fd_dense_accumulate_batched[rj]", 203, rj["launches"], 10),
         (quad["tables"], "fd_dense_accumulate_batched[quad]", 203, quad["launches"], 10),
         (scan["tables"], "fd_dense_accumulate[scan]", 99, scan["launches"], 10),
         (pallas["tables"], "fd_dense_accumulate_batched[pallas-names]", 203, pallas["launches"], 10),

@@ -350,6 +350,7 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         "backend": backend,
         "sampler": sampler,
         "likelihood": like,
+        "data": data,
         "table": table_t,
         "forced_idx": idx_t,
         "f_arr": f_np,

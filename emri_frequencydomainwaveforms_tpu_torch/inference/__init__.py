@@ -1,6 +1,7 @@
-"""Ensemble MCMC: the tempered sampler and its move schedule, the moves,
-priors, state, chain backends and the stopping / update hooks (single
-branch, fixed dimension)."""
+"""Ensemble MCMC: the tempered sampler (fixed dimension or multi-branch /
+reversible jump) and its move schedule, the moves, priors, state, chain
+backends, the stopping / update hooks, the sampler presets and the staged
+pipeline."""
 
 from .backends.hdf import HDFBackend, TempHDFBackend
 from .backends.memory import Backend
@@ -9,9 +10,18 @@ from .moves.distgen import DistributionGenerate
 from .moves.gaussian import GaussianMove, MHMove
 from .moves.gb import MultiSourceFisherProposal, PTRedBlueMove, SkyMove
 from .moves.group import CombineMove, DelayedRejectionMove, GroupStretchMove
-from .moves.mt import MTDistGenMove
+from .moves.mt import MTDistGenMove, MTDistGenMoveRJ
+from .moves.rj import DelayedRejectionRJ, DistributionGenerateRJ
 from .moves.stretch import DIMEMove, StretchMove
 from .moves.tempering import TemperatureControl, make_ladder
+from .moves.tree import TreeGaussianMove, TreeStretchMove
+from .pipeline import (
+    InfoManager,
+    PipelineGuide,
+    PipelineModule,
+    ResidualUpdateModule,
+    SamplerModule,
+)
 from .prior import (
     MappedUniformDistribution,
     ProbDistContainer,
@@ -19,7 +29,7 @@ from .prior import (
     log_uniform,
     uniform_dist,
 )
-from .state import Branch, State, make_state
+from .state import Branch, BranchSupplimental, State, make_state
 from .stopping import (
     AdjustStretchProposalScale,
     AutoCorrelationStop,
@@ -32,7 +42,10 @@ __all__ = [
     "StretchMove",
     "GaussianMove",
     "MHMove",
+    "DistributionGenerateRJ",
     "DistributionGenerate",
+    "MTDistGenMoveRJ",
+    "DelayedRejectionRJ",
     "TemperatureControl",
     "make_ladder",
     "ProbDistContainer",
@@ -42,6 +55,7 @@ __all__ = [
     "MappedUniformDistribution",
     "State",
     "Branch",
+    "BranchSupplimental",
     "make_state",
     "Backend",
     "HDFBackend",

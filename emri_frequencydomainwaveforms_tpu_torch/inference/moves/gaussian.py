@@ -52,8 +52,8 @@ class GaussianMove(MHMove):
     """Gaussian random-walk MH.
 
     ``cov``: scalar (isotropic), (ndim,) diagonal or (ndim, ndim) full
-    covariance; a dict of covariances per branch is kept as ``cov_dict``
-    for the multi-branch sampler, which the port does not have. ``mode``:
+    covariance; a dict of covariances per branch is kept as ``cov_dict``,
+    for the multi-branch sampler to lift into a `TreeGaussianMove`. ``mode``:
     "Gaussian", "AM" or "DE" (module docstring). Proposal draws: "Gaussian"
     and "AM" one standard normal (ntemps, nwalkers, ndim); "DE" the two
     partner indices (ntemps, nwalkers) and the jump uniforms (ntemps,
@@ -107,8 +107,9 @@ class GaussianMove(MHMove):
             return coords + z @ self._chol.T, factors
         if self._scale is None:
             raise NotImplementedError(
-                "a GaussianMove with a covariance per branch needs the multi-branch sampler: "
-                "use the JAX package's inference.ensemble.EnsembleSampler")
+                "a GaussianMove with a covariance per branch runs in the multi-branch sampler "
+                "(several branches, nleaves_max > 1 or rj_moves), which lifts it into a "
+                "TreeGaussianMove")
         return coords + z * self._scale, factors
 
 

@@ -1,7 +1,6 @@
-"""Galactic-binary sky moves and the legacy parallel-tempered red-blue move.
+"""Galactic-binary moves and the legacy parallel-tempered red-blue move.
 
-Counterpart of the single-branch half of
-``emri_frequencydomainwaveforms_tpu.inference.moves.gb``:
+Counterpart of ``emri_frequencydomainwaveforms_tpu.inference.moves.gb``:
 
 * `SkyMove`: discrete hopping between the 8 degenerate LISA sky modes, a
   latitude reflection (sin beta -> -sin beta, cos iota -> -cos iota,
@@ -12,6 +11,17 @@ Counterpart of the single-branch half of
 * `PTRedBlueMove`: the legacy parallel-tempered red-blue move, a stretch
   within every rung, the swap cascade and the Vousden ladder adaptation, as
   one object over the port's `StretchMove` and `TemperatureControl`.
+* `GBFreqJump`: an in-model tree move (`moves.tree`) for multi-source GB
+  states: one uniformly chosen active leaf per walker gets ``num_try``
+  candidates (a relative Gaussian perturbation, a ~20-bin f0 jump, a prior
+  redraw of some columns, cosine columns reflected into [-1, 1]), one is
+  chosen by tempered likelihood (Gumbel-max) and accepted with the
+  symmetric-kernel independent multiple-try ratio.
+* `BruteRejectionRJ` (alias `BruteRejection`) and `GBBruteRejectionRJ`:
+  RJ births chosen from ``num_brute`` candidates, the multiple-try RJ
+  estimator of `moves.mt.MTDistGenMoveRJ`, with greedy argmax selection
+  (``take_max_ll``, search mode: detailed balance deliberately broken) and
+  a ``point_generator_func`` hook for candidate libraries.
 """
 
 from __future__ import annotations
@@ -22,7 +32,10 @@ import numpy as np
 import torch
 
 from ...utils.periodic import floor_mod
+from ..state import cpu64
 from .gaussian import MHMove
+from .mt import MTDistGenMoveRJ
+from .rj import branch_functions
 from .stretch import StretchMove, _normal, _uniform
 from .tempering import TemperatureControl, swap_cascade
 
@@ -171,4 +184,172 @@ class PTRedBlueMove:
         return coords, log_like, log_prior, n_acc, torch.from_numpy(self.betas.copy())
 
 
-__all__ = ["SkyMove", "MultiSourceFisherProposal", "PTRedBlueMove"]
+class GBFreqJump:
+    """Multiple-try frequency-jump leaf update (tree contract).
+
+    ``df``: the frequency bin width (Hz); ``factor``: the relative Gaussian
+    width; ``f0_ind``: the f0 column (mHz); ``prior_redraw``: the columns
+    drawn anew from the prior (through each dist's ``ppf``);
+    ``reflect_inds``: cosine columns reflected into [-1, 1]; ``priors``: a
+    `ProbDistContainer` or a dict of them per branch; ``spread``: the f0
+    jump in bins.
+    """
+
+    def __init__(self, df: float, factor: float, *, num_try: int = 10,
+                 f0_ind: int = 1, prior_redraw=(2, 3, 4, 5),
+                 reflect_inds=(4, 7), priors=None, spread: int = 20):
+        self.df = float(df)
+        self.factor = float(factor)
+        self.num_try = int(num_try)
+        self.f0_ind = int(f0_ind)
+        self.prior_redraw = tuple(prior_redraw)
+        self.reflect_inds = tuple(reflect_inds)
+        self.priors = priors
+        self.spread = float(spread)
+
+    def _priors(self, coords):
+        return self.priors if isinstance(self.priors, dict) else {
+            name: self.priors for name in coords}
+
+    def branch_draws(self, generator, shape, prior):
+        """For one branch's coords ``shape`` (T, W, L, D): the slot
+        uniforms (T, W, L), the relative normals (T, W, J, D), the f0
+        normals (T, W, J), the redrawn columns' unit-cube points (T, W, J,
+        len(prior_redraw)) (drawn only with a prior and redraw columns,
+        else None), the selection uniforms (T, W, J) and the accept
+        uniforms (T, W), drawn in that order."""
+        t, w, nl, d = shape
+        j = self.num_try
+        u_slot = _uniform(generator, (t, w, nl))
+        n_rel = _normal(generator, (t, w, j, d))
+        n_f0 = _normal(generator, (t, w, j))
+        u_pr = (_uniform(generator, (t, w, j, len(self.prior_redraw)))
+                if prior is not None and self.prior_redraw else None)
+        return u_slot, n_rel, n_f0, u_pr, _uniform(generator, (t, w, j)), _uniform(generator, (t, w))
+
+    def draws(self, generator, coords: dict):
+        """`branch_draws` of every branch, in branch order."""
+        priors = self._priors(coords)
+        return [self.branch_draws(generator, tuple(c.shape), priors[name])
+                for name, c in coords.items()]
+
+    def _candidates(self, leaf, prior, n_rel, n_f0, u_pr):
+        """(T, W, D) current leaves -> (T, W, J, D) candidates."""
+        base = leaf[:, :, None, :].expand(-1, -1, self.num_try, -1)
+        cand = base * (1.0 + self.factor * n_rel)
+        cand[..., self.f0_ind] = base[..., self.f0_ind] + self.spread * self.df * 1e3 * n_f0
+        if u_pr is not None:
+            for n, col in enumerate(self.prior_redraw):
+                cand[..., col] = prior.priors_in[col].ppf(u_pr[..., n])
+        for col in self.reflect_inds:
+            x = cand[..., col]
+            x = torch.where(x > 1.0, x - 2.0 * torch.abs(1.0 - x), x)
+            cand[..., col] = torch.where(x < -1.0, x + 2.0 * torch.abs(-1.0 - x), x)
+        return cand
+
+    def propose_tree(self, generator, coords: dict, inds: dict, log_like, log_prior, betas,
+                     logp_fn, logl_fn):
+        """The tree contract: each branch in turn. Returns (coords, inds,
+        log_like, log_prior, accepted per temperature)."""
+        return self.step(coords, inds, log_like, log_prior, betas, self.draws(generator, coords),
+                         logp_fn, logl_fn)
+
+    # the sampler runs in-model tree moves through `propose`
+    propose = propose_tree
+
+    def step(self, coords, inds, log_like, log_prior, betas, draws, logp_fn, logl_fn):
+        priors = self._priors(coords)
+        coords = dict(coords)
+        n_total = None
+        for name, draw in zip(list(coords), draws):
+            loglike, logprior = branch_functions(coords, inds, name, logp_fn, logl_fn)
+            coords[name], log_like, log_prior, n_acc = self._step_branch(
+                priors[name], coords[name], inds[name], log_like, log_prior, betas, draw,
+                loglike, logprior)
+            n_total = n_acc if n_total is None else n_total + n_acc
+        return coords, dict(inds), log_like, log_prior, n_total
+
+    def _step_branch(self, prior, coords, inds, log_like, log_prior, betas, draws, loglike,
+                     logprior):
+        t, w, nl, d = coords.shape
+        j = self.num_try
+        u_slot, n_rel, n_f0, u_pr, u_sel, u = draws
+        # one uniformly chosen active leaf per walker; a walker with none
+        # proposes nothing
+        any_active = inds.any(dim=-1)
+        slot = torch.argmax(torch.where(inds, u_slot, -torch.inf), dim=-1)
+        onehot = torch.nn.functional.one_hot(slot, nl).to(torch.bool)
+        leaf = torch.gather(coords, 2, slot[..., None, None].expand(-1, -1, 1, d))[:, :, 0]
+        cand = self._candidates(leaf, prior, n_rel, n_f0, u_pr)
+
+        coords_j = torch.where(onehot[:, :, None, :, None], cand[:, :, :, None, :],
+                               coords[:, :, None].expand(t, w, j, nl, d)).reshape(t, w * j, nl, d)
+        inds_j = inds[:, :, None].expand(t, w, j, nl).reshape(t, w * j, nl)
+        lp_j = logprior(coords_j, inds_j).reshape(t, w, j)
+        need = any_active[..., None] & torch.isfinite(lp_j)
+        ll_j = loglike(coords_j, inds_j, need.reshape(t, w * j)).reshape(t, w, j)
+
+        logw = betas[:, None, None] * ll_j + lp_j
+        logw = torch.where(torch.isfinite(logw), logw, -torch.inf)
+        sel = torch.argmax(logw + -torch.log(-torch.log(u_sel)), dim=-1)
+        y = torch.gather(cand, 2, sel[..., None, None].expand(-1, -1, 1, d))[:, :, 0]
+        ll_y = torch.gather(ll_j, 2, sel[..., None])[..., 0]
+        lp_y = torch.gather(lp_j, 2, sel[..., None])[..., 0]
+
+        # symmetric-kernel I-MTM: the current point in place of the selected draw
+        logw_x = betas[:, None] * log_like + log_prior
+        num = torch.logsumexp(logw, dim=-1)
+        chosen = torch.arange(j)[None, None, :] == sel[..., None]
+        den = torch.logaddexp(torch.logsumexp(logw.masked_fill(chosen, -torch.inf), dim=-1),
+                              logw_x)
+        accept = (torch.log(u) < num - den) & any_active & torch.isfinite(lp_y)
+        coords = torch.where((accept[..., None] & onehot)[..., None], y[..., None, :], coords)
+        return (coords, torch.where(accept, ll_y, log_like), torch.where(accept, lp_y, log_prior),
+                accept.sum(dim=1))
+
+
+class BruteRejectionRJ(MTDistGenMoveRJ):
+    """Brute-force-rejection RJ births: `MTDistGenMoveRJ` with
+
+    * ``num_brute``: the candidate cloud's size (``num_try``);
+    * ``take_max_ll``: greedy argmax selection (search mode; the acceptance
+      estimator is unchanged, so detailed balance is deliberately broken);
+    * ``point_generator_func(generator, shape) -> (candidates, logq)``:
+      candidates (T, W, J, D) from a search-sample library in place of
+      ``ppf`` draws, drawn from the iteration's ``torch.Generator`` (the
+      reference passes a JAX key). ``logq`` is not folded into the weights:
+      the candidates are weighed by ``generate_dist``'s logpdf, as in the
+      reference.
+    """
+
+    def __init__(self, generate_dist, num_brute: int = 10, *, take_max_ll: bool = False,
+                 point_generator_func=None, nleaves_min=0, nleaves_max=1, **kwargs):
+        super().__init__(generate_dist, num_try=num_brute, nleaves_min=nleaves_min,
+                         nleaves_max=nleaves_max, **kwargs)
+        self.num_brute = int(num_brute)
+        self.take_max_ll = bool(take_max_ll)
+        self._greedy_select = bool(take_max_ll)
+        self.point_generator_func = point_generator_func
+
+    def _cand_draws(self, generator, shape):
+        if self.point_generator_func is not None:
+            return cpu64(self.point_generator_func(generator, shape)[0])
+        return super()._cand_draws(generator, shape)
+
+    def _candidates(self, dist, draw):
+        if self.point_generator_func is not None:
+            return draw
+        return super()._candidates(dist, draw)
+
+
+class GBBruteRejectionRJ(BruteRejectionRJ):
+    """`BruteRejectionRJ` under the galactic-binary name; the data and PSD
+    it would hold live in `lisa.likelihood.GlobalLikelihood`."""
+
+
+# the selection core's other name
+BruteRejection = BruteRejectionRJ
+
+
+__all__ = ["SkyMove", "MultiSourceFisherProposal", "GBFreqJump", "BruteRejection",
+           "BruteRejectionRJ", "GBBruteRejectionRJ", "PTRedBlueMove"]

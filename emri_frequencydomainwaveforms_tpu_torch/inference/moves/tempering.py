@@ -8,8 +8,9 @@ walkers and the accept rule ``log u < dbeta (logL_hot - logL_cold)``, and the
 Vousden-Farr-Mandel ladder adaptation (arXiv:1501.05823).
 
 `swap_cascade` is the cascade as a pure function of its random draws (per
-pair, the hot and cold permutations and the accept uniforms);
-`TemperatureControl.temperature_swaps` draws them from a
+pair, the hot and cold permutations and the accept uniforms), over one
+coordinate tensor or a multi-branch tree; `TemperatureControl
+.temperature_swaps` and `temperature_swaps_tree` draw them from a
 ``torch.Generator``.
 """
 
@@ -39,17 +40,29 @@ def make_ladder(ndim: int, ntemps: int | None = None, Tmax: float | None = None)
     return betas
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nest of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def swap_cascade(coords, log_like, log_prior, betas, perms_hot, perms_cold, u):
     """Nearest-neighbour swaps from the hottest pair down.
 
-    ``coords`` (ntemps, nwalkers, ...), ``log_like`` / ``log_prior``
+    ``coords``: a (ntemps, nwalkers, ...) tensor, or a nest of dicts, tuples
+    and lists of them (a multi-branch ``(coords, inds)`` tree, boolean
+    ``inds`` included), each swapped alike; ``log_like`` / ``log_prior``
     (ntemps, nwalkers), ``betas`` (ntemps,); the draws are lists over the
     pairs (ntemps-1, ntemps-2), ..., (1, 0): permutations (nwalkers,) of the
     hot and the cold rung and the accept uniforms (nwalkers,). Returns
     (coords, log_like, log_prior, swap acceptance per pair (ntemps-1,),
     coldest pair first).
     """
-    coords, log_like, log_prior = coords.clone(), log_like.clone(), log_prior.clone()
+    coords = _tree_map(torch.clone, coords)
+    log_like, log_prior = log_like.clone(), log_prior.clone()
     ntemps = log_like.shape[0]
     ratios = []
     for j, i in enumerate(range(ntemps - 1, 0, -1)):
@@ -60,15 +73,16 @@ def swap_cascade(coords, log_like, log_prior, betas, perms_hot, perms_cold, u):
         sel = torch.log(u[j]) < dbeta * (ll_hot - ll_cold)
         ratios.append(torch.mean(sel.to(torch.float64)))
 
-        x_hot, x_cold = coords[i, p_hot], coords[i - 1, p_cold]
-        lp_hot, lp_cold = log_prior[i, p_hot], log_prior[i - 1, p_cold]
-        selx = sel.reshape(sel.shape + (1,) * (x_hot.dim() - 1))
-        coords[i, p_hot] = torch.where(selx, x_cold, x_hot)
-        coords[i - 1, p_cold] = torch.where(selx, x_hot, x_cold)
-        log_like[i, p_hot] = torch.where(sel, ll_cold, ll_hot)
-        log_like[i - 1, p_cold] = torch.where(sel, ll_hot, ll_cold)
-        log_prior[i, p_hot] = torch.where(sel, lp_cold, lp_hot)
-        log_prior[i - 1, p_cold] = torch.where(sel, lp_hot, lp_cold)
+        def swap(x, i=i, p_hot=p_hot, p_cold=p_cold, sel=sel):
+            x_hot, x_cold = x[i, p_hot], x[i - 1, p_cold]
+            selx = sel.reshape(sel.shape + (1,) * (x_hot.dim() - 1))
+            x[i, p_hot] = torch.where(selx, x_cold, x_hot)
+            x[i - 1, p_cold] = torch.where(selx, x_hot, x_cold)
+            return x
+
+        coords = _tree_map(swap, coords)
+        log_like = swap(log_like)
+        log_prior = swap(log_prior)
     swap_frac = torch.stack(ratios[::-1]) if ratios else torch.zeros((0,), dtype=torch.float64)
     return coords, log_like, log_prior, swap_frac
 
@@ -119,6 +133,12 @@ class TemperatureControl:
         log_like, log_prior, swap acceptance per pair (ntemps-1,))."""
         return swap_cascade(coords, log_like, log_prior, betas,
                             *self.draws(generator, log_like.shape[1]))
+
+    def temperature_swaps_tree(self, generator, tree, log_like, log_prior, betas):
+        """The same cascade, on the same draws, over a tree of (ntemps,
+        nwalkers, ...) tensors (the multi-branch ``(coords, inds)`` dicts).
+        Returns (tree, log_like, log_prior, swap acceptance per pair)."""
+        return self.temperature_swaps(generator, tree, log_like, log_prior, betas)
 
     def adapt_ladder(self, betas, swap_frac, time):
         """One adaptation step: the spacings of the inner rungs move by the

@@ -1,9 +1,9 @@
 """Sampler state.
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.inference.state``
-(`Branch`, `State`, `make_state`) for the single-branch, fixed-dimension
-sampler: float64 CPU tensors, with coords (ntemps, nwalkers, nleaves_max,
-ndim) and a boolean leaf mask ``inds``. ``random_state`` holds the integer
+(`Branch`, `State`, `make_state`, `BranchSupplimental`): float64 CPU
+tensors, with coords (ntemps, nwalkers, nleaves_max, ndim) and a boolean
+leaf mask ``inds`` per branch. ``random_state`` holds the integer
 seed of the sampler's next iteration (`ensemble.EnsembleSampler` draws each
 iteration from a ``torch.Generator`` seeded with it), where the reference
 holds a JAX PRNG key. ``move_info`` carries the moves' adaptation state
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -103,4 +104,31 @@ def make_state(
     )
 
 
-__all__ = ["Branch", "State", "make_state"]
+class BranchSupplimental:
+    """Host-side numpy data keyed like a branch: per-leaf arrays that follow
+    walker reshuffles by take / put along an axis."""
+
+    def __init__(self, obj_info: dict, base_shape=None):
+        self.holder = {k: np.asarray(v) for k, v in obj_info.items()}
+        self.base_shape = base_shape
+
+    def __getitem__(self, key):
+        return self.holder[key]
+
+    @staticmethod
+    def _expand(indices, ndim):
+        return indices.reshape(indices.shape + (1,) * (ndim - indices.ndim))
+
+    def take_along_axis(self, indices, axis: int):
+        indices = np.asarray(indices)
+        return {k: np.take_along_axis(v, self._expand(indices, v.ndim), axis=axis)
+                for k, v in self.holder.items()}
+
+    def put_along_axis(self, indices, values: dict, axis: int):
+        indices = np.asarray(indices)
+        for k, v in values.items():
+            np.put_along_axis(self.holder[k], self._expand(indices, self.holder[k].ndim), v,
+                              axis=axis)
+
+
+__all__ = ["Branch", "State", "make_state", "BranchSupplimental"]

@@ -1,7 +1,7 @@
 """Noise-weighted likelihood over frequency-domain channels, per walker batch.
 
 Counterpart of ``emri_frequencydomainwaveforms_tpu.lisa.likelihood``
-(`df_vector`, `Likelihood`): the PSD comes from ``noise_fn(freqs)``, the
+(`df_vector`, `Likelihood`, `GlobalLikelihood`): the PSD comes from ``noise_fn(freqs)``, the
 spacing is the right-rule df vector, the injection is pre-whitened by
 sqrt(df / PSD), and ``log L = -1/2 * 4 * sum |d - h|^2`` over the whitened
 channels.
@@ -12,7 +12,9 @@ template: ``template(params_full)`` takes (n, ndim_full) float64 parameters
 spectra on ``f_arr``, in float32 or float64. The spectra are cast to float64
 before whitening, and every reduction runs in float64 on the likelihood's
 device. ``subset`` evaluates the walkers in chunks of that many (each
-walker's value does not depend on the chunk it is in).
+walker's value does not depend on the chunk it is in). `GlobalLikelihood`
+sums the templates of the rows of each group (the sources of one walker)
+before the residual.
 """
 
 from __future__ import annotations
@@ -125,15 +127,18 @@ class Likelihood:
         ]
 
     # ---- evaluation ----
+    def _template(self, params: torch.Tensor):
+        """Template channels [(re, im), ...], (n, nf) float64 each, on the
+        likelihood's device."""
+        full = self.transform.both_transforms(params) if self.transform is not None else params
+        return [(re.to(device=self.device, dtype=torch.float64),
+                 im.to(device=self.device, dtype=torch.float64))
+                for re, im in self.template_model(full)]
+
     def _channels(self, params: torch.Tensor):
         """Whitened template channels [(re, im), ...], (n, nf) float64 each."""
-        full = self.transform.both_transforms(params) if self.transform is not None else params
         wf = self.noise_factor
-        out = []
-        for re, im in self.template_model(full):
-            out.append((re.to(device=self.device, dtype=torch.float64) * wf,
-                        im.to(device=self.device, dtype=torch.float64) * wf))
-        return out
+        return [(re * wf, im * wf) for re, im in self._template(params)]
 
     def _chunks(self, params: torch.Tensor):
         n = params.shape[0]
@@ -192,4 +197,45 @@ class Likelihood:
         return self.d_h_h_h(self._last_params)[1]
 
 
-__all__ = ["Likelihood", "df_vector"]
+class GlobalLikelihood(Likelihood):
+    """Grouped-template likelihood: the rows of one group are separate
+    sources summed in the data model (the reversible-jump multi-source
+    configuration).
+
+    ``get_ll(params, groups)``: ``params`` (n, ndim) rows, ``groups`` (n,)
+    group ids; the rows go through the template in one call per ``subset``
+    chunk, each group's templates are summed, whitened and reduced, and
+    the result is (max(groups) + 1,) float64 on the likelihood's device (a
+    group with no row gets the data's own log L; a trailing one gets no
+    entry, as in the reference). Without ``groups``, the per-row log L.
+    """
+
+    def get_ll(self, params, groups=None, **kwargs):
+        if groups is None:
+            return self(params, **kwargs)
+        if self.injection_whitened is None:
+            raise RuntimeError("call inject_signal first")
+        params = self._as_params(params)
+        groups = torch.as_tensor(groups, dtype=torch.long).reshape(-1).to(self.device)
+        n_groups = int(groups.max()) + 1
+        sums, lo = None, 0
+        for p in self._chunks(params):
+            g = groups[lo:lo + p.shape[0]]
+            lo += p.shape[0]
+            chans = self._template(p)
+            if sums is None:
+                sums = [tuple(torch.zeros((n_groups, x.shape[-1]), dtype=torch.float64,
+                                          device=self.device) for x in ch) for ch in chans]
+            for acc, ch in zip(sums, chans):
+                for a, x in zip(acc, ch):
+                    a.index_add_(0, g, x)
+        wf = self.noise_factor
+        ll = torch.zeros((n_groups,), dtype=torch.float64, device=self.device)
+        for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, sums):
+            r_re = d_re - h_re * wf
+            r_im = d_im - h_im * wf
+            ll = ll + torch.sum(r_re * r_re + r_im * r_im, dim=-1)
+        return -2.0 * ll
+
+
+__all__ = ["Likelihood", "GlobalLikelihood", "df_vector"]

@@ -359,17 +359,11 @@ def test_package_exports_match_reference():
 
 
 # The JAX package's exports of inference/, lisa/ and utils/ that the port
-# does not have yet, each with the ROADMAP Queue 1 item that ports it.
+# does not have yet, each with the ROADMAP Queue 1 item that ports it: none
+# left.
 NOT_YET_PORTED = {
-    "inference": {
-        "DistributionGenerateRJ": "item 7, RJ",
-        "MTDistGenMoveRJ": "item 7, RJ",
-        "DelayedRejectionRJ": "item 7, RJ",
-        "BranchSupplimental": "item 7, multi-branch state",
-    },
-    "lisa": {
-        "GlobalLikelihood": "item 7, GlobalLikelihood",
-    },
+    "inference": {},
+    "lisa": {},
     "utils": {},
 }
 

@@ -28,6 +28,7 @@ from emri_frequencydomainwaveforms_tpu_torch.inference.ensemble import EnsembleS
 from emri_frequencydomainwaveforms_tpu_torch.inference.moves import GaussianMove
 from emri_frequencydomainwaveforms_tpu_torch.inference.moves import stretch as t_stretch
 from emri_frequencydomainwaveforms_tpu_torch.inference.moves import tempering as t_temp
+from emri_frequencydomainwaveforms_tpu_torch.inference.state import make_state
 from emri_frequencydomainwaveforms_tpu_torch.utils.periodic import PeriodicContainer as TPeriodic
 from emri_frequencydomainwaveforms_tpu_torch.utils.transform import TransformContainer as TTransform
 
@@ -291,8 +292,39 @@ def test_reads_a_jax_written_chain_file(tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(nleaves_max=2), dict(rj_moves=True),
                                 dict(moves=GaussianMove({"model_0": np.eye(NDIM)}))])
-def test_multibranch_is_refused(kw):
-    # a covariance per branch is a multi-branch move (move lists run as
-    # schedules: tests/test_torch_moves.py)
-    with pytest.raises(NotImplementedError, match="JAX package"):
-        EnsembleSampler(8, [NDIM], _ll_t, {"model_0": _priors(t_prior)}, **kw)
+def test_multibranch_configurations_build(kw):
+    # each configuration builds what the reference builds: the multi-branch
+    # flag, the move and RJ move types and the leaf bounds. nleaves_max = 2
+    # and rj_moves run the tree sampler (TreeStretchMove, a prior-draw
+    # DistributionGenerateRJ); a covariance per branch on one fixed-dimension
+    # branch stays a flat GaussianMove, as in the reference (the tree sampler
+    # lifts it: tests/test_torch_tree.py::test_adapt_move)
+    from emri_frequencydomainwaveforms_tpu.inference.ensemble import EnsembleSampler as JSampler
+    from emri_frequencydomainwaveforms_tpu.inference.moves.gaussian import GaussianMove as JGauss
+
+    def tree_ll_t(c, i):
+        return torch.sum(torch.where(i, _ll_t(c), 0.0), dim=-1)
+
+    def tree_ll_j(c, i):
+        return jnp.sum(jnp.where(i, _ll_j(c), 0.0), axis=-1)
+
+    tree = "moves" not in kw
+    kw_j = {k: JGauss(v.cov_dict) if isinstance(v, GaussianMove) else v for k, v in kw.items()}
+    js = JSampler(8, [NDIM], tree_ll_j if tree else _ll_j, {"model_0": _priors(j_prior)}, **kw_j)
+    ts = EnsembleSampler(8, [NDIM], tree_ll_t if tree else _ll_t, {"model_0": _priors(t_prior)},
+                         **kw)
+    assert ts.multibranch == js.multibranch == tree
+    assert [type(m).__name__ for m in ts.moves] == [type(m).__name__ for m in js.moves]
+    assert [type(m).__name__ for m in ts.rj_moves] == [type(m).__name__ for m in js.rj_moves]
+    assert ts.nleaves_max == js.nleaves_max and ts.nleaves_min == js.nleaves_min
+    if not tree:
+        return
+    # two iterations of the tree sampler from one active leaf
+    nl = ts.nleaves_max["model_0"]
+    coords = np.random.default_rng(6).normal(MEANS, SIGMA, (1, 8, nl, NDIM))
+    inds = np.zeros((1, 8, nl), bool)
+    inds[..., 0] = True
+    last = ts.run_mcmc(make_state({"model_0": coords}, inds={"model_0": inds}), 2)
+    counts = ts.get_nleaves()["model_0"]
+    assert counts.shape == (2, 1, 8) and counts.min() >= 0 and counts.max() <= nl
+    assert torch.isfinite(last.log_like).all()

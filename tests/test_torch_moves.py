@@ -240,8 +240,27 @@ def test_distribution_generate_on_jax_draws():
     got = case.run_port(DistributionGenerate(case.pt), _distgen_draws(key, case.ndim))
     # the draws come from the prior: none is cut
     case.check(got, ref, cut=False)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributionGenerate(case.pt).propose(torch.Generator(), {"a": None}, None)
+    # a dict of coordinates takes the tree contract: one branch of one
+    # active leaf, identical coords on the JAX tree move's draws
+    def tree_fns(logp, logl):
+        return (lambda c, i: logp(c["m"][..., 0, :]), lambda c, i: logl(c["m"][..., 0, :]))
+
+    cj, ij = {"m": jnp.asarray(case.coords)[:, :, None]}, {"m": jnp.ones((NTEMPS, NWALKERS, 1), bool)}
+    ref = j_distgen.DistributionGenerate(case.pj).propose(
+        key, cj, ij, jnp.asarray(case.ll), jnp.asarray(case.lp), jnp.asarray(BETAS),
+        *tree_fns(case.pj.logpdf, _ll_j))
+    key, k_u = jax.random.split(key)
+    key, k_draw = jax.random.split(key)
+    draws = ({"m": _t(jax.random.uniform(k_draw, (NTEMPS, NWALKERS, 1, case.ndim)))},
+             _t(jax.random.uniform(k_u, (NTEMPS, NWALKERS))))
+    got = DistributionGenerate(case.pt).step_tree(
+        {"m": torch.from_numpy(case.coords)[:, :, None]}, {"m": torch.ones((NTEMPS, NWALKERS, 1),
+                                                                              dtype=torch.bool)},
+        _t(case.ll), _t(case.lp), _t(BETAS), draws, *tree_fns(case.pt.logpdf, case.logl_t))
+    np.testing.assert_array_equal(got[0]["m"].numpy(), np.asarray(ref[0]["m"]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(ref[4]))
 
 
 @pytest.mark.parametrize("friends", [False, True])

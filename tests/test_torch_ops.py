@@ -166,6 +166,13 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.group\n"
         "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.mt\n"
         "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.gb\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.tree\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.rj\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.moves.tempering\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.state\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.guide\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.inference.pipeline\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.testing.batch_dependence\n"
         "import emri_frequencydomainwaveforms_tpu_torch.lisa.tdi\n"
         "import emri_frequencydomainwaveforms_tpu_torch.lisa.mldc\n"
         "import emri_frequencydomainwaveforms_tpu_torch.lisa\n"

@@ -7,6 +7,8 @@ outside the prior, which the port does not evaluate, giving what the
 reference's masked form gives. Tolerances are stated per test.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -235,3 +237,18 @@ def test_run_emri_pe_td_template_and_td_injection(monkeypatch, template, inject_
         # the TD injection (detector-frame facade, its own eps selection,
         # windowed) differs from the FD template, as in the reference
         assert -1e4 < ll_truth < -1.0
+
+
+def test_template_rows_do_not_depend_on_their_batch_on_the_cpu(capsys):
+    # testing/batch_dependence.py on the CPU: a walker's knots, phase,
+    # amplitudes, Ylm and template are the same alone and in batches of 2,
+    # 4, 8 and 16 (exactly; on the card they are not, ROADMAP Queue 3)
+    from emri_frequencydomainwaveforms_tpu_torch.testing import batch_dependence
+
+    batch_dependence.main(["cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[batch] B=")]
+    assert len(lines) == 8
+    for ln in lines:
+        alone, in_batch = re.search(r"live knots (\d+) \(in the batch of 16: (\d+)\)", ln).groups()
+        values = [float(v) for v in re.findall(r"\d\.\d+e[+-]\d+", ln)]
+        assert alone == in_batch and len(values) == 5 and not any(values), ln
