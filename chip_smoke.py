@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Builds the hand-written CUDA kernel from the sources in this checkout,
-checks it against its plain PyTorch version on the card at the main path's
-shapes and on small adversarial layouts, then drives the port's main path
+Builds the hand-written CUDA kernels from the sources in this checkout (the
+dense pass and the fixed-order row kernels, one nvcc each, at once),
+checks the dense pass against its plain PyTorch version on the card at the
+main path's shapes and on small adversarial layouts, then drives the port's main path
 at full width: a 128-walker batch of all-mode FD waveforms of a 1-yr source
 at dt = 10 s (1,577,907 positive bins), eps = 1e-2 selection frozen to 16
 slots, 256-run windows of 64 bins and 2 turnover slots, and the same module
@@ -38,12 +39,18 @@ schedule on the PE likelihood from the PE chain's last state (`[moves]`),
 the multi-branch / reversible-jump sampler on a two-source EMRI
 `GlobalLikelihood` over the PE template (`[rj]`: tree stretch, prior-draw
 RJ birth / death and tree swaps, then the lifted tree Gaussian and the
-multiple-try RJ move), and the TDI container and MLDC noise models on the
-PE injection and grid (`[tdi]`).
-Last it times the kernel on the dense-pass tables the runs produced, beside its
+multiple-try RJ move), walker and frequency sharding on `torch.distributed`
+(`[mesh]`: the PE likelihood at full width by 4 ranks of 4 walkers and on a
+2 x 2 walker x frequency mesh against one process, every walker's knots,
+log L and template, then the multi-rank dry run's chain against its
+replay), and the TDI container and MLDC noise models on the PE injection
+and grid (`[tdi]`).
+Last it times the dense pass on the tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
-write floor) and the kernel with every slot dead. Every phase raises on
-failure; nothing falls back to the CPU or to the plain version.
+write floor) and the kernel with every slot dead, and each row kernel on
+the inputs its call sites got in `[pe]`, beside its plain version and
+bound. Every phase raises on failure; nothing falls back to the CPU or to
+the plain version.
 
     python3 chip_smoke.py
 
@@ -76,6 +83,8 @@ KERNEL_SOURCE = "emri_frequencydomainwaveforms_tpu_torch/csrc/fd_dense.cu"
 PALLAS = "emri_frequencydomainwaveforms_tpu/ops/pallas/fd_dense.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64 peak outside the tensor cores (NVIDIA data sheet)
+ROW_SOURCE = "emri_frequencydomainwaveforms_tpu_torch/csrc/row_ops.cu"
 # float32 operations per kept (bin, slot) pair: 3 cubics + the cycle term +
 # a sin/cos pair + 4 complex-weight multiply-adds (an FMA counts 2)
 OPS_PER_PAIR = 64
@@ -122,23 +131,30 @@ RELBIN_WALKERS = 64
 # [moves]: the PE configuration at full width with its ensemble cut to 16
 # walkers x 2 temperatures (32 per likelihood call); the Gaussian widths of
 # the parameters outside [fisher]'s block, as a share of each prior's width;
-# stored vs fresh log L of the final walkers, relative
+# stored vs fresh log L of the final walkers, relative: a walker's log L no
+# longer depends on the batch it is evaluated in (ops/row_ops.py), so only
+# float64 rounding is allowed
 MOVES_WALKERS, MOVES_TEMPS = 16, 2
 MOVES_WIDTH = 1e-7
 MOVES_SEED = 2602
-MOVES_LL_TOL = 1e-6
+MOVES_LL_TOL = 1e-12
 # [rj]: the PE configuration at full width, one "emri" branch of 1 or 2
 # sources, the ensemble cut to 8 walkers x 2 temperatures; walkers 4-7 start
 # with a second source drawn from the prior with this seed
 RJ_WALKERS, RJ_TEMPS = 8, 2
 RJ_SEED = 2603
 # GlobalLikelihood against the PE Likelihood on the same rows in the same
-# batch, relative (one source per group: the same arithmetic). Across
-# batches a walker's log L moves by up to ~1e-3 relative on the card: its
-# dp5 step sequence depends on the batch (PERF.md section 7), so [rj] holds
-# each stored log L to the value computed for that walker's sources, and
-# prints the other comparisons
+# batch, relative (one source per group: the same arithmetic); each final
+# stored log L against a fresh evaluation in another batch, relative (a
+# walker's template and log L do not depend on its batch, ops/row_ops.py)
 RJ_SAME_BATCH_TOL = 1e-12
+RJ_FRESH_TOL = 1e-12
+# [mesh]: the PE template at full width (no duration solve: p0 as the [pe]
+# run solves it), 16 walkers evaluated in one process, by 4 ranks of 4
+# walkers, on a 2 x 2 walker x frequency mesh and (walkers 0 and 5) alone;
+# log L and the template against the batch of 16, relative
+MESH_RANKS = 4
+MESH_TOL = 1e-12
 # [tdi]: card vs CPU and tensor vs numpy, relative
 TDI_TOL = 1e-12
 
@@ -492,9 +508,35 @@ def drive_pe(env):
     wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
     from emri_frequencydomainwaveforms_tpu_torch.cli import emri_pe
     from emri_frequencydomainwaveforms_tpu_torch.inference.backends.memory import Backend
+    from emri_frequencydomainwaveforms_tpu_torch.lisa import likelihood as lisa_likelihood
+    from emri_frequencydomainwaveforms_tpu_torch.models import amplitude, geodesic
+    from emri_frequencydomainwaveforms_tpu_torch.ops import row_ops
 
     args = emri_pe.build_parser().parse_args(PE_ARGS.split())
     seen = {}
+    row_kernels = (row_ops.row_sum, row_ops.row_cumsum)
+    # each row kernel's call sites on the PE path: (module, name, site)
+    row_sites = ((geodesic, "row_sum", "row_sum[rhs]"),
+                 (amplitude, "row_sum", "row_sum[amplitudes]"),
+                 (lisa_likelihood, "row_sum", "row_sum[likelihood]"),
+                 (summation_fd, "row_cumsum", "row_cumsum[level-1]"))
+    site_launches = {site: 0 for _, _, site in row_sites}
+    row_inputs = {}
+
+    def at_sites(keep):
+        """Patch every call site: count the launches each call adds to its
+        kernel's count, and with ``keep`` keep the site's first inputs."""
+        stack = contextlib.ExitStack()
+        for module, name, site in row_sites:
+            def run(*a, _fn=getattr(module, name), _site=site, **k):
+                if keep and _site not in row_inputs:
+                    row_inputs[_site] = (_fn, tuple(t.clone() for t in a), dict(k))
+                before = _fn.launches
+                out = _fn(*a, **k)
+                site_launches[_site] += _fn.launches - before
+                return out
+            stack.enter_context(patched(module, name, run))
+        return stack
 
     def keep_first(groups, *, r, nf):
         n_b = groups[0].pc.shape[0]
@@ -504,13 +546,23 @@ def drive_pe(env):
         return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
 
     fd_dense.fd_dense_accumulate.launches = 0
-    with dense_function(summation_fd, keep_first):
+    for fn in row_kernels:
+        fn.launches = 0
+    with dense_function(summation_fd, keep_first), at_sites(keep=False):
         out = emri_pe.run_emri_pe(args, backend=Backend())
     torch.cuda.synchronize()
     launches = fd_dense.fd_dense_accumulate.launches
+    row_launches = {fn.__name__: fn.launches for fn in row_kernels}
+    row_launches_sites = dict(site_launches)
+    check(all(sum(v for k, v in row_launches_sites.items() if k.startswith(name + "[")) == n
+              for name, n in row_launches.items()),
+          f"[pe] every row kernel launch came from a call site ({row_launches_sites})")
     n_1, n_b = seen.get("tables_1_calls", 0), seen.get("tables_calls", 0)
     check(launches > 0 and launches == n_1 + n_b,
           f"[pe] the PE run launched the fd_dense kernel ({launches} = {n_1} + {n_b})")
+    check(all(v > 0 for v in row_launches_sites.values()),
+          f"[pe] the PE run launched every row kernel from each of its call sites "
+          f"({row_launches_sites})")
     check(n_1 >= 1 and n_b >= 2 * args.nsteps, f"[pe] B = 1 calls {n_1}, batched calls {n_b}")
     like, backend, timing = out["likelihood"], out["backend"], out["timing"]
 
@@ -541,14 +593,16 @@ def drive_pe(env):
     check(rel_w <= 1e-5, f"[pe] whitened template kernel vs plain rel L2 {rel_w:.3e} <= 1e-5")
     del w_k, w_p
 
-    # one 64-walker likelihood call, split by stage
+    # one 64-walker likelihood call, split by stage; the first input of each
+    # row-kernel call site is kept for the kernel records
     timer = StageTimer(torch)
     with patched(wf, "schwarz_ecc_flux_inspiral",
                  timer.wrap("trajectory", wf.schwarz_ecc_flux_inspiral)), \
             patched(wf, "mode_amplitudes", timer.wrap("amplitudes", wf.mode_amplitudes)), \
             patched(summation_fd, "_level1_uniform_tables",
                     timer.wrap("level-1", summation_fd._level1_uniform_tables)), \
-            dense_function(summation_fd, timer.wrap("dense", fd_dense.fd_dense_accumulate)):
+            dense_function(summation_fd, timer.wrap("dense", fd_dense.fd_dense_accumulate)), \
+            at_sites(keep=True):
         t0 = time.perf_counter()
         like(half)
         torch.cuda.synchronize()
@@ -561,8 +615,9 @@ def drive_pe(env):
     print(f"[pe] run_emri_pe ({PE_ARGS}): p0 {out['p0']:.6f}, injection SNR {out['snr']:.2f} "
           f"(the TPU's PE_VALIDATION.md run: {PE_SNR_TPU}), |log L(truth)| {abs(ll_truth):.3e}, "
           f"stored log L in [{ll.min():.4e}, {ll.max():.4e}], acceptance {acc_mean:.3f}, "
-          f"fd_dense launches {launches} ({n_1} at B = 1, {n_b} batched), whitened template "
-          f"kernel vs plain rel L2 {rel_w:.3e}", flush=True)
+          f"fd_dense launches {launches} ({n_1} at B = 1, {n_b} batched), row kernel launches "
+          f"{row_launches} (by call site {row_launches_sites}), whitened template kernel vs "
+          f"plain rel L2 {rel_w:.3e}", flush=True)
     print(f"[timing pe] duration solve {timing['p0_solve_s']:.2f} s; injection "
           f"{timing['injection_s'] * 1e3:.1f} ms; one {half.shape[0]}-walker likelihood call "
           f"{call_s * 1e3:.1f} ms (trajectory {timer.totals['trajectory'] * 1e3:.1f}, amplitudes "
@@ -575,7 +630,7 @@ def drive_pe(env):
           f"(nsteps x ntemps x nwalkers / wall, the wall holding the start as in the CLI); "
           f"host clock, synchronized; on {card}", flush=True)
     return dict(tables=seen["tables"], tables_1=seen["tables_1"], launches=n_b, launches_1=n_1,
-                args=args, out=out)
+                args=args, out=out, row_launches=row_launches_sites, row_inputs=row_inputs)
 
 
 def lane_rel_l2(res, ref):
@@ -1515,6 +1570,8 @@ def drive_rj(env, pe_run, moves):
                       f"({sum(owned)} of {len(owned)})")
     fresh = tree_ll(final_c[None], final_inds.reshape(1, nt * nw, 2)).numpy().reshape(nt, nw)
     rel = float(np.max(np.abs(fresh - stored) / np.abs(stored)))
+    check(rel <= RJ_FRESH_TOL, f"[rj] final stored vs a fresh evaluation in another batch rel "
+                               f"{rel:.3e} <= {RJ_FRESH_TOL}")
 
     before = np.bincount(inds.sum(-1).ravel(), minlength=3)[1:]
     after = np.bincount(final_inds.sum(-1).numpy().ravel(), minlength=3)[1:]
@@ -1532,7 +1589,7 @@ def drive_rj(env, pe_run, moves):
           f"{RJ_SAME_BATCH_TOL}), vs [pe]'s stored values (other batches) {rel_pe:.3e}; every "
           f"stored log L finite, 1-2 sources, acceptances in [0, 1], each the value computed for "
           f"its walker's sources; final stored vs a fresh evaluation (another batch) max rel "
-          f"{rel:.3e}; host clock, synchronized; on {card}", flush=True)
+          f"{rel:.3e} (<= {RJ_FRESH_TOL}); host clock, synchronized; on {card}", flush=True)
     return dict(tables=seen["tables"], launches=n_b)
 
 
@@ -1578,6 +1635,159 @@ def drive_tdi(env, pe_run, fisher):
           f"{summary} (<= {TDI_TOL}); on {card}", flush=True)
 
 
+def drive_mesh(env, grid):
+    """Walker and frequency sharding on the card, at the PE likelihood's full
+    width (`testing/pe_mesh.py`; p0 fixed, no duration solve): 16 walkers
+    around the injection in one process at B = 16, then, in MESH_RANKS
+    ranks spawned once (all on this card, exchanging through gloo), by
+    walker shards (4 ranks x 4 walkers) and on a 2 x 2 walker x frequency
+    mesh (each rank's template on its half of the bins), then walkers 0 and
+    5 alone. Every walker's live knots must be equal across the
+    evaluations, its log L and template within MESH_TOL of the batch of 16.
+    The same ranks then run `graft_entry.dryrun_rank`, checked by
+    `check_dryrun`. Returns rank 0's dense-pass tables (its walkers' rows of
+    the batch of 16's) and every rank's fd_dense launches. The one-process
+    batches and the dry run's replay run here while the ranks start up."""
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    from emri_frequencydomainwaveforms_tpu_torch.graft_entry import check_dryrun, dryrun_replay
+    from emri_frequencydomainwaveforms_tpu_torch.parallel.mesh import start_ranks
+    from emri_frequencydomainwaveforms_tpu_torch.testing import batch_dependence, pe_mesh
+
+    t0 = time.perf_counter()
+    spec = pe_mesh.pe_problem(batch_dependence.PE_ARGS, batch_dependence.P0, dev, grid)
+    parent_s = {"injection": time.perf_counter() - t0}
+    host_grid = None if grid is None else grid._replace(values=grid.values.cpu())
+    # the ranks start now; this process's own work overlaps their start-up
+    # (beside ranks already computing on the same card it took ~4x longer,
+    # NVIDIA H100 80GB HBM3, 700 W)
+    handle = start_ranks(pe_mesh.mesh_rank, MESH_RANKS, (spec, host_grid, None), backend="gloo")
+    like, last = pe_mesh.pe_likelihood(spec, dev, grid)
+    x = torch.as_tensor(spec["x"])
+    n = x.shape[0]
+
+    def evaluate(rows):
+        ll = like(x[rows]).cpu()
+        return dict(ll=ll, n_live=last["n_live"], template=last["template"])
+
+    seen = []
+    with dense_function(env["summation_fd"], capturing(env["fd_dense"].fd_dense_accumulate, seen)):
+        one = evaluate(list(range(n)))
+    alone = {k: evaluate([k]) for k in (0, 5)}
+    parent_s["B = 16 and 1"] = time.perf_counter() - t0 - sum(parent_s.values())
+    replay = dryrun_replay(MESH_RANKS, dev)
+    parent_s["replay"] = time.perf_counter() - t0 - sum(parent_s.values())
+    ranks = handle.join()
+    parent_s["waiting for the ranks"] = time.perf_counter() - t0 - sum(parent_s.values())
+    evals = {f"{MESH_RANKS} ranks x {n // MESH_RANKS}": ranks["walker"],
+             f"{MESH_RANKS // 2} x 2 walker x freq": ranks["composed"]}
+    for k, ev in alone.items():
+        evals[f"walker {k} alone"] = ev
+    worst_ll, worst_t, all_exact = 0.0, 0.0, True
+    for k in range(n):
+        parts = []
+        for name, ev in evals.items():
+            if name.startswith("walker ") and not name.startswith(f"walker {k} "):
+                continue
+            i = 0 if name.startswith("walker ") else k
+            knots, ll, tmpl = int(ev["n_live"][i]), float(ev["ll"][i]), ev["template"][i]
+            check(knots == int(one["n_live"][k]),
+                  f"[mesh] walker {k}: {knots} knots in '{name}', {int(one['n_live'][k])} at B = {n}")
+            rel_ll = abs(ll - float(one["ll"][k])) / abs(float(one["ll"][k]))
+            rel_t = float((tmpl.double() - one["template"][k].double()).abs().max()
+                          / one["template"][k].double().abs().max())
+            exact = ll == float(one["ll"][k]) and bool(torch.equal(tmpl, one["template"][k]))
+            worst_ll, worst_t = max(worst_ll, rel_ll), max(worst_t, rel_t)
+            all_exact = all_exact and exact
+            parts.append(f"{name}: {knots} knots, log L rel {rel_ll:.3e}, template {rel_t:.3e} "
+                         f"max/scale ({'bit-exact' if exact else 'not bit-exact'})")
+        print(f"[mesh] walker {k} (B = {n}: {int(one['n_live'][k])} knots, log L "
+              f"{float(one['ll'][k]):.10e}): " + "; ".join(parts), flush=True)
+    check(worst_ll <= MESH_TOL and worst_t <= MESH_TOL,
+          f"[mesh] log L rel {worst_ll:.3e}, template {worst_t:.3e} <= {MESH_TOL}")
+    per_rank = [int(v) for v in ranks["launches"]]
+    check(all(v > 0 for v in per_rank), f"[mesh] every rank launched fd_dense ({per_rank})")
+    dry = check_dryrun({**ranks["dryrun"], **replay}, MESH_RANKS)
+    mesh_s = time.perf_counter() - t0
+    print(f"[mesh] PE likelihood ({batch_dependence.PE_ARGS}; p0 {batch_dependence.P0}) on {n} "
+          f"walkers, each evaluation against the batch of {n} in one process: equal knots, "
+          f"worst log L rel {worst_ll:.3e}, worst template {worst_t:.3e} max/scale (<= "
+          f"{MESH_TOL}), {'every match bit-exact' if all_exact else 'not every match bit-exact'}; "
+          f"ranks on {ranks['device']} (rank 0) through gloo, fd_dense launches per rank in the "
+          f"walker-sharded evaluation {per_rank}; composed bins of rank 0 {ranks['composed']['bins']}; "
+          f"dry run composed chain {'bit-exact' if dry.get('exact') else 'within 1e-12'}; "
+          f"seconds, this process: {', '.join(f'{k} {v:.1f}' for k, v in parent_s.items())}; "
+          f"rank 0 (after its spawn): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in ranks['seconds'].items())}; phase "
+          f"{mesh_s:.1f} s; host clock; on {card}",
+          flush=True)
+    # rank 0's tables: its walkers' rows of the batch of 16's, the same to
+    # the bit (the rows do not depend on the batch, as checked above)
+    groups, r, nf = seen[0]
+    rank0 = n // MESH_RANKS
+    groups = [env["fd_dense"].DenseGroup(*(t[:rank0].contiguous() for t in g)) for g in groups]
+    return dict(tables=(groups, r, nf), launches=sum(per_rank), per_rank=per_rank)
+
+
+def row_records(torch, card, pe):
+    """Each row kernel of the PE path on the inputs its call sites got in
+    [pe]'s timed likelihood call: against its plain version (the PyTorch
+    call it stands in for, which is also the library call), timed beside
+    both and its bound. A sum of n terms in any order lies within
+    (n - 1) u sum|terms| of the exact one (u the unit roundoff): a row sum
+    must agree with the plain one within 2 n u max sum|terms|, and each
+    element j of a running sum with the float64 running sum of its input
+    within 2 (j + 1) u sum_{j' <= j} |x_j'|, so that a scan that drops or
+    shifts a term fails at the first element it touches. Returns the
+    kernel records, each with its call site's launches in the [pe] run."""
+    plain_of = {"row_sum": lambda x, mean=False: torch.mean(x, -1) if mean else torch.sum(x, -1),
+                "row_cumsum": lambda x: torch.cumsum(x, -1)}
+    records = []
+    for site, (fn, args, kw) in sorted(pe["row_inputs"].items()):
+        name = fn.__name__
+        got, ref = fn(*args, **kw), plain_of[name](*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got.double() - ref.double()).abs().max())
+        u = 2.0**-53 if got.dtype == torch.float64 else 2.0**-24
+        if name == "row_cumsum":
+            x = args[0].double()
+            exact = torch.cumsum(x, -1)
+            terms = torch.arange(1, x.shape[-1] + 1, dtype=torch.float64, device=x.device)
+            bound = 2.0 * terms * u * torch.cumsum(x.abs(), -1)
+            worst = float(((got.double() - exact).abs() / bound.clamp_min(1e-300)).max())
+            check(bool(torch.isfinite(got).all()) and worst <= 1.0,
+                  f"{site}: each element vs the float64 running sum within 2 (j + 1) u "
+                  f"sum|x| (worst {worst:.3e} of its bound)")
+            held = f"vs float64 per element {worst:.3e} of 2 (j + 1) u sum|x|"
+        else:
+            scale = float(plain_of[name](*(t.abs() for t in args), **kw).double().max())
+            tol = 2.0 * args[0].shape[-1] * u
+            check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+                  f"{site}: kernel vs plain {err:.3e} <= {tol:.2e} x {scale:.3e}")
+            held = f"/ max sum|terms| {err / scale:.3e} <= 2 n u = {tol:.2e}"
+        ms = time_ms(lambda: fn(*args, **kw), 20, torch)
+        plain_ms = time_ms(lambda: plain_of[name](*args, **kw), 20, torch)
+        library_ms = time_ms(lambda: plain_of[name](*args, **kw), 20, torch)
+        n_bytes = sum(t.numel() * t.element_size() for t in args) + got.numel() * got.element_size()
+        ops = float(args[0].numel())
+        peak = F64_OPS_PER_S if got.dtype == torch.float64 else F32_OPS_PER_S
+        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+        shapes = " @ ".join(str(tuple(t.shape)) for t in args)
+        print(f"[kernel] {site} on [pe]'s inputs {shapes} {args[0].dtype}: max|kernel-plain|="
+              f"{err:.3e} ({held}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} -> "
+              f"{100 * bound_ms / ms:.1f} % of bound; {pe['row_launches'][site]} launches from "
+              f"this call site in the [pe] run; on {card}", flush=True)
+        records.append({
+            "name": site, "route": "cuda", "source": ROW_SOURCE, "replaces": None,
+            "launches": pe["row_launches"][site], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "tables": "pe",
+            "why": "fixed-order reduction: a walker's result independent of its batch",
+        })
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -1587,7 +1797,7 @@ def main() -> None:
     from emri_frequencydomainwaveforms_tpu_torch.models import amplitude, flux, inspiral
     from emri_frequencydomainwaveforms_tpu_torch.models import modeselect, summation_fd
     from emri_frequencydomainwaveforms_tpu_torch.models import waveform as wf
-    from emri_frequencydomainwaveforms_tpu_torch.ops import cubic_spline, fd_dense
+    from emri_frequencydomainwaveforms_tpu_torch.ops import cubic_spline, cuda_build, fd_dense
     from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
     from emri_frequencydomainwaveforms_tpu_torch.utils import fdutils
     from emri_frequencydomainwaveforms_tpu_torch.utils.ylm import spin_weighted_ylm
@@ -1604,11 +1814,12 @@ def main() -> None:
     phase_done("device")
     # ---- phase 2: build ----
     t0 = time.perf_counter()
-    lib_path, log = fd_dense.build_kernel()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"[build] {KERNEL_SOURCE} -> {os.path.basename(lib_path)} in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs) or log.strip()[:200]}",
-          flush=True)
+    built = cuda_build.build_all()  # one nvcc per source, all at once
+    for source, (lib_path, log) in built.items():
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"[build] csrc/{source}.cu -> {os.path.basename(lib_path)}; ptxas: "
+              f"{' | '.join(regs) or log.strip()[:200]}", flush=True)
+    print(f"[build] {len(built)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase_done("build")
     # ---- phase 3: kernel vs plain version on the card ----
@@ -1852,6 +2063,9 @@ def main() -> None:
     phase_done("moves")
     rj = drive_rj(env, pe, moves)
     phase_done("rj")
+    # ---- walker and frequency sharding on torch.distributed, the dry run ----
+    mesh = drive_mesh(env, grid)
+    phase_done("mesh")
     drive_tdi(env, pe, fisher)
     del pe["out"], fisher
     torch.cuda.empty_cache()
@@ -1868,6 +2082,7 @@ def main() -> None:
         (pe["tables_1"], "fd_dense_accumulate[pe]", 99, pe["launches_1"], 100),
         (moves["tables"], "fd_dense_accumulate_batched[moves]", 203, moves["launches"], 10),
         (rj["tables"], "fd_dense_accumulate_batched[rj]", 203, rj["launches"], 10),
+        (mesh["tables"], "fd_dense_accumulate_batched[mesh]", 203, mesh["launches"], 10),
         (quad["tables"], "fd_dense_accumulate_batched[quad]", 203, quad["launches"], 10),
         (scan["tables"], "fd_dense_accumulate[scan]", 99, scan["launches"], 10),
         (pallas["tables"], "fd_dense_accumulate_batched[pallas-names]", 203, pallas["launches"], 10),
@@ -1902,8 +2117,11 @@ def main() -> None:
         })
         if n_b == BATCH:
             records[-1]["skeleton_ms"] = skeleton_ms
+        if name.endswith("[mesh]"):
+            records[-1]["launches_per_rank"] = mesh["per_rank"]
         del buf
         torch.cuda.empty_cache()
+    records += row_records(torch, card, pe)
 
     phase_done("kernel records")
     # ---- what the quad trajectory issues to the card, traced last: traced

@@ -90,6 +90,27 @@ def physics(args) -> dict:
     )
 
 
+def parameter_transform():
+    """The sampled (ln M, ln(mu / M), p0, e0, Phi_phi0, Phi_r0) -> the
+    templates' 14 parameters: M and mu from their logs, the fixed ones
+    filled in (a = 0, x = 1, dist 1 Gpc, qS, phiS, qK, phiK = pi/4, pi/3,
+    pi/5, pi/6, Phi_theta0 = 0)."""
+    from ..utils.transform import TransformContainer
+
+    qS, phiS, qK, phiK = np.pi / 4, np.pi / 3, np.pi / 5, np.pi / 6
+    dist = 1.0
+    return TransformContainer(
+        parameter_transforms={
+            (0, 1): lambda lm, le: [torch.exp(lm), torch.exp(lm) * torch.exp(le)]
+        },
+        fill_dict={
+            "ndim_full": 14,
+            "fill_values": np.array([0.0, 1.0, dist, qS, phiS, qK, phiK, 0.0]),
+            "fill_inds": np.array([2, 5, 6, 7, 8, 9, 10, 12]),
+        },
+    )
+
+
 def template_prologue(args, table_t, forced_idx, *, flux_grid, device):
     """The templates' prologue: ``(n, 14)`` transformed parameters -> the
     `WaveformPrologue` of the (frozen) table ``table_t`` on ``device``."""
@@ -113,20 +134,26 @@ def template_prologue(args, table_t, forced_idx, *, flux_grid, device):
     return prologue
 
 
-def fd_template(args, table_t, forced_idx, f_arr, *, flux_grid, device):
+def fd_template(args, table_t, forced_idx, f_arr, *, flux_grid, device, record=None):
     """The FD template on the uniform grid ``f_arr``: ``(n, 14)``
     transformed parameters -> [(h+ re, im), (hx re, im)], (n, nf) float32
-    on ``device``, through the banded kernel."""
+    on ``device``, through the banded kernel; ``bins=(lo, hi)`` gives only
+    those bins (a frequency shard, `fd_waveform_core`'s ``bin_range``).
+    With a dict ``record``, each call stores its batch's live knots
+    (``n_live``, (n,)) and spectra (``template``, (n, 4, bins)) there, on
+    the CPU."""
     from ..models.waveform import fd_waveform_core
 
     prologue = template_prologue(args, table_t, forced_idx, flux_grid=flux_grid, device=device)
     uniform = (float(f_arr[0]), float(f_arr[1] - f_arr[0]))
 
-    def template(params14):
-        hpr, hpi, hcr, hci = fd_waveform_core(
-            prologue(params14), table_t, len(f_arr), channels=True, uniform=uniform,
-            out_f32=True)
-        return [(hpr, hpi), (hcr, hci)]
+    def template(params14, bins=None):
+        pro = prologue(params14)
+        out = fd_waveform_core(pro, table_t, len(f_arr), channels=True, uniform=uniform,
+                               out_f32=True, bin_range=bins)
+        if record is not None:
+            record.update(n_live=pro.n_live.cpu(), template=torch.stack(out, dim=1).cpu())
+        return [(out[0], out[1]), (out[2], out[3])]
 
     return template
 
@@ -150,7 +177,6 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
     from ..models.waveform import default_frequencies, waveform_prologue
     from ..utils.device import resolve_device
     from ..utils.fdutils import get_fft_td_windowed
-    from ..utils.transform import TransformContainer
 
     dev = resolve_device(device if device is not None else torch.device("cuda", args.dev))
     timing = {}
@@ -194,19 +220,7 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
     else:
         table_t, idx_t = table, None
 
-    # fixed parameters filled at likelihood time
-    qS, phiS, qK, phiK = np.pi / 4, np.pi / 3, np.pi / 5, np.pi / 6
-    dist = 1.0
-    transform = TransformContainer(
-        parameter_transforms={
-            (0, 1): lambda lm, le: [torch.exp(lm), torch.exp(lm) * torch.exp(le)]
-        },
-        fill_dict={
-            "ndim_full": 14,
-            "fill_values": np.array([0.0, 1.0, dist, qS, phiS, qK, phiK, 0.0]),
-            "fill_inds": np.array([2, 5, 6, 7, 8, 9, 10, 12]),
-        },
-    )
+    transform = parameter_transform()
 
     if args.template == "fd":
         template = fd_template(args, table_t, idx_t, f_np, flux_grid=grid, device=dev)

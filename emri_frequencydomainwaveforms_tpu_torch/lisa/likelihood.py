@@ -24,6 +24,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..ops.row_ops import row_sum
 from ..utils.device import resolve_device
 
 
@@ -127,38 +128,58 @@ class Likelihood:
         ]
 
     # ---- evaluation ----
-    def _template(self, params: torch.Tensor):
+    def _template(self, params: torch.Tensor, bins=None):
         """Template channels [(re, im), ...], (n, nf) float64 each, on the
-        likelihood's device."""
+        likelihood's device; with ``bins=(lo, hi)`` the template is asked
+        for those bins only (``template_model(full, bins=(lo, hi))``)."""
         full = self.transform.both_transforms(params) if self.transform is not None else params
+        chans = self.template_model(full) if bins is None else self.template_model(full, bins=bins)
         return [(re.to(device=self.device, dtype=torch.float64),
                  im.to(device=self.device, dtype=torch.float64))
-                for re, im in self.template_model(full)]
+                for re, im in chans]
 
-    def _channels(self, params: torch.Tensor):
-        """Whitened template channels [(re, im), ...], (n, nf) float64 each."""
-        wf = self.noise_factor
-        return [(re * wf, im * wf) for re, im in self._template(params)]
+    def _channels(self, params: torch.Tensor, bins=None):
+        """Whitened template channels [(re, im), ...], (n, nf) float64 each
+        (n, hi - lo with ``bins``)."""
+        wf = self.noise_factor if bins is None else self.noise_factor[bins[0]:bins[1]]
+        return [(re * wf, im * wf) for re, im in self._template(params, bins)]
 
     def _chunks(self, params: torch.Tensor):
         n = params.shape[0]
         step = n if self.subset is None else max(int(self.subset), 1)
         return [params[i:i + step] for i in range(0, n, step)]
 
+    def _power(self, chans, lo: int, hi: int) -> torch.Tensor:
+        """sum over channels of sum_{lo <= i < hi} |d_i - h_i|^2 per row, from
+        whitened template channels that cover those bins."""
+        acc = torch.zeros((chans[0][0].shape[0],), dtype=torch.float64, device=self.device)
+        for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, chans):
+            r_re = d_re[lo:hi] - h_re
+            r_im = d_im[lo:hi] - h_im
+            acc = acc + row_sum(r_re * r_re + r_im * r_im)
+        return acc
+
+    def residual_power(self, params, bins=None) -> torch.Tensor:
+        """Whitened residual power sum |d - h|^2 over the channels and the bins
+        ``bins=(lo, hi)`` (default: all) of each row of ``params``, (n,)
+        float64; the template is evaluated on those bins only. log L is
+        -2 x the power summed over all bins; a frequency shard's partial sum
+        (`parallel.mesh`)."""
+        if self.injection_whitened is None:
+            raise RuntimeError("call inject_signal first")
+        params = self._as_params(params)
+        lo, hi = (0, self.f_arr.shape[0]) if bins is None else bins
+        return self._power(self._channels(params, bins), lo, hi)
+
     def _ll(self, params: torch.Tensor) -> torch.Tensor:
-        ll = torch.zeros((params.shape[0],), dtype=torch.float64, device=self.device)
-        for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, self._channels(params)):
-            r_re = d_re - h_re
-            r_im = d_im - h_im
-            ll = ll + torch.sum(r_re * r_re + r_im * r_im, dim=-1)
-        return -2.0 * ll  # -1/2 * 4 * sum |d - h|^2
+        return -2.0 * self._power(self._channels(params), 0, self.f_arr.shape[0])
 
     def _dh(self, params: torch.Tensor):
         dh = torch.zeros((params.shape[0],), dtype=torch.float64, device=self.device)
         hh = torch.zeros_like(dh)
         for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, self._channels(params)):
-            dh = dh + torch.sum(d_re * h_re + d_im * h_im, dim=-1)
-            hh = hh + torch.sum(h_re * h_re + h_im * h_im, dim=-1)
+            dh = dh + row_sum(d_re * h_re + d_im * h_im)
+            hh = hh + row_sum(h_re * h_re + h_im * h_im)
         return 4.0 * dh, 4.0 * hh
 
     def _as_params(self, params) -> torch.Tensor:
@@ -234,7 +255,7 @@ class GlobalLikelihood(Likelihood):
         for (d_re, d_im), (h_re, h_im) in zip(self.injection_whitened, sums):
             r_re = d_re - h_re * wf
             r_im = d_im - h_im * wf
-            ll = ll + torch.sum(r_re * r_re + r_im * r_im, dim=-1)
+            ll = ll + row_sum(r_re * r_re + r_im * r_im)
         return -2.0 * ll
 
 

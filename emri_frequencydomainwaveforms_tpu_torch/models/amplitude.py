@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.row_ops import row_sum
 from ..utils.device import resolve_device
 from .geodesic import _N_CHI, _antiderivative_matrix
 from .rho import _x_of_mode, factorized_correction
@@ -166,6 +167,42 @@ def family_constants(table: ModeTable) -> np.ndarray:
     return np.asarray(c, dtype=np.float64).reshape(-1, 2)
 
 
+_PRODUCT_ITEMS = 512  # items in every batched product on the card (_products)
+
+
+def _products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` for (R, M, K) ``a`` and a (K, N) ``w`` shared by the R
+    items or (R, K, N) one per item, each item's result independent of R.
+
+    On the card cuBLAS picks its kernel from the whole shape, the number of
+    items included: the (R M, K) @ (K, N) GEMM takes another kernel
+    (split-K among them) for another R, and so does the batched product at
+    some item shapes (a card test found (1, 256) @ (256, 9) items differ
+    between 192 and 512 of them). So every call here is a batched product
+    of exactly _PRODUCT_ITEMS items: R is cut into such chunks, the last
+    padded with zeros, and each item's arithmetic depends on its shape
+    alone. On the CPU ``torch.matmul`` already keeps each item's order, and
+    its GEMM matches the JAX package's float32 product more closely than a
+    batched one.
+    """
+    if a.device.type == "cpu":
+        return torch.matmul(a, w)
+    r, c = a.shape[0], _PRODUCT_ITEMS
+    outs = []
+    for i in range(0, r, c):
+        ai = a[i:i + c]
+        wi = w if w.dim() == 2 else w[i:i + c]
+        n = ai.shape[0]
+        if n < c:
+            ai = torch.cat([ai, ai.new_zeros((c - n,) + ai.shape[1:])])
+            if wi.dim() == 3:
+                wi = torch.cat([wi, wi.new_zeros((c - n,) + wi.shape[1:])])
+        if wi.dim() == 2:
+            wi = wi.expand(c, *wi.shape)
+        outs.append(torch.bmm(ai, wi)[:n])
+    return torch.cat(outs) if outs else a.new_zeros(a.shape[:-1] + w.shape[-1:])
+
+
 def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None):
     """Fourier coefficients F_n[g_lm] of the requested multipole families.
 
@@ -195,8 +232,11 @@ def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None
         / ((p32 - 2.0 - 2.0 * ecos) * (1.0 + ecos) ** 2 * torch.sqrt(rad))
     )
     h = float(np.float32(2.0 * np.pi / n_chi))
-    t_r = torch.sum(dt_dchi, dim=-1, keepdim=True) * h  # (BK, 1)
-    dphi_tot = torch.sum(dphi_dchi, dim=-1, keepdim=True) * h
+    # every reduction and product over the chi nodes in an order fixed per
+    # row, so that a walker's amplitudes do not depend on its batch
+    # (ops/row_ops.py, _products)
+    t_r = row_sum(dt_dchi)[:, None] * h  # (BK, 1)
+    dphi_tot = row_sum(dphi_dchi)[:, None] * h
     omega_r = 2.0 * np.pi / t_r
     omega_phi = dphi_tot / t_r
 
@@ -204,8 +244,8 @@ def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None
     a_op_t = torch.as_tensor(_antiderivative_matrix(n_chi).T, dtype=f32, device=dev)
 
     def periodic_antiderivative(g):
-        mean = torch.mean(g, dim=-1, keepdim=True)
-        return (g - mean) @ a_op_t, mean
+        mean = row_sum(g, mean=True)[:, None]
+        return _products((g - mean)[:, None, :], a_op_t)[:, 0], mean
 
     t_per, t_mean = periodic_antiderivative(dt_dchi)
     phi_per, phi_mean = periodic_antiderivative(dphi_dchi)
@@ -260,7 +300,7 @@ def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None
         f_vals = fval(rp, lp)
         ckk, skk = ck[k]
         fc = f_vals * ckk
-        mc = torch.sum(w * fc, dim=-1, keepdim=True)
+        mc = row_sum(w * fc)[:, None]
         rows.append(w * (fc - mc))
         row_meta.append((si, 0))
         means.append(mc)
@@ -268,7 +308,7 @@ def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None
             rows.append(w * (f_vals * skk))
             row_meta.append((si, 1))
     integ = torch.stack(rows, dim=1)  # (BK, n_rows, n_chi)
-    proj = torch.bmm(integ, cs)  # (BK, n_rows, 2(n_max+1))
+    proj = _products(integ, cs)  # (BK, n_rows, 2(n_max+1))
 
     np1 = n_max + 1
     dc = torch.zeros((1, np1), dtype=f32, device=dev)

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.row_ops import row_sum
 from ..utils.device import resolve_device
 
 # quadrature resolution of the periodic Darwin integrands (see the JAX module)
@@ -70,8 +71,10 @@ def fundamental_frequencies(p: torch.Tensor, e: torch.Tensor) -> tuple[torch.Ten
     p, e = torch.broadcast_tensors(p, e)
     dphi_dchi, dt_dchi = _darwin_integrands(p, e, _chi(_N_CHI, p))
     h = 2.0 * math.pi / _N_CHI
-    t_r = torch.sum(dt_dchi, dim=-1) * h
-    dphi = torch.sum(dphi_dchi, dim=-1) * h
+    # fixed-order sums: on the card torch.sum's order follows the batch, and
+    # this runs in every dp5 RHS evaluation (ops/row_ops.py)
+    t_r = row_sum(dt_dchi) * h
+    dphi = row_sum(dphi_dchi) * h
     return dphi / t_r, 2.0 * math.pi / t_r
 
 

@@ -38,6 +38,7 @@ import torch
 from ..ops.bessel import kve_one_third_imag
 from ..ops.cubic_spline import fit_cubic_spline, spline_eval
 from ..ops.fd_dense import DenseGroup, fd_dense_accumulate
+from ..ops.row_ops import row_cumsum
 from .amplitude import ModeTable
 from .modeselect import SelectedModes, top_k_stable
 
@@ -424,6 +425,7 @@ def fd_mode_sum_uniform(
     band_offsets_extra: torch.Tensor | None = None,
     extra_band_runs: int | None = None,
     out_dtype: torch.dtype | None = None,
+    bin_range: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Banded FD summation on the uniform grid f = f0 + i df, i < nf.
 
@@ -434,12 +436,23 @@ def fd_mode_sum_uniform(
     by power, with their own ``extra_band_runs`` window and
     ``band_offsets_extra``.
 
-    Returns (o1_re, o1_im, o2_re, o2_im), each (B, nf), in ``out_dtype``
-    (default: the trajectory's float64; the dense pass itself is float32).
+    ``bin_range=(lo, hi)`` computes only the bins lo <= i < hi of that grid
+    (lo a multiple of ``bins_per_run``: a frequency shard): every window and
+    table is laid out on the whole grid as before and the dense pass places
+    bin i at output column i - lo, so each bin comes out of the same
+    arithmetic as in the whole-grid call, to the bit.
+
+    Returns (o1_re, o1_im, o2_re, o2_im), each (B, nf) (or (B, hi - lo)),
+    in ``out_dtype`` (default: the trajectory's float64; the dense pass
+    itself is float32).
     """
     t_knots = inp.t_knots
     dev = t_knots.device
     r = bins_per_run
+    lo, hi = (0, nf) if bin_range is None else (int(bin_range[0]), int(bin_range[1]))
+    if lo % r or not 0 <= lo < hi <= nf:
+        raise ValueError(f"bin_range ({lo}, {hi}): expected 0 <= lo < hi <= nf = {nf} with lo "
+                         f"a multiple of bins_per_run = {r}")
     g_total = -(-nf // r)  # runs covering the grid
     g_band = g_total if band_runs is None else min(band_runs, g_total)
     run_df = r * df
@@ -520,7 +533,11 @@ def fd_mode_sum_uniform(
         )
         groups.append(_dense_group(tables_x, ex[7], ex_w, g0_x, f0, df, r))
 
-    out = fd_dense_accumulate(groups, r=r, nf=nf)  # (B, 4, nf) float32
+    if lo:
+        # window starts relative to the shard's first run (negative for a
+        # window that begins before it; the dense pass drops those bins)
+        groups = [g._replace(g0=(g.g0 - lo // r).contiguous()) for g in groups]
+    out = fd_dense_accumulate(groups, r=r, nf=hi - lo)  # (B, 4, hi - lo) float32
     dt_out = t_knots.dtype if out_dtype is None else out_dtype
     return tuple(out[:, c].to(dt_out) for c in range(4))
 
@@ -567,7 +584,10 @@ def _polar_envelope(e_re: torch.Tensor, e_im: torch.Tensor, anchor=None):
     d = torch.where(ok, d - n * pi_, torch.zeros_like(d))
     n = torch.where(ok, n, torch.zeros_like(n))
     zero = torch.zeros_like(raw[..., :1])
-    phs = torch.cat([zero, torch.cumsum(d, dim=-1)], dim=-1)
+    # a fixed-order running sum: torch.cumsum's order on the card follows the
+    # number of rows (ops/row_ops.py); the parities are integers, exact in
+    # any order
+    phs = torch.cat([zero, row_cumsum(d)], dim=-1)
     par = torch.cat([zero, torch.cumsum(n, dim=-1)], dim=-1)
     sign = 1.0 - 2.0 * torch.remainder(par, 2.0)
     if anchor is None:

@@ -169,6 +169,7 @@ def fd_waveform_core(
     band_offsets_extra=None,
     out_f32: bool = False,
     nodes_per_segment: int = 32,
+    bin_range: tuple[int, int] | None = None,
 ):
     """FD waveforms on positive frequencies, (B, nf) per output.
 
@@ -180,7 +181,9 @@ def fd_waveform_core(
     ``uniform=None`` evaluates the general sorted-grid kernel
     (`fd_mode_sum`, ``nodes_per_segment`` nodes per trajectory segment) on
     the ascending positive frequencies ``f_pos`` (nf,), which the batch
-    shares.
+    shares. ``bin_range=(lo, hi)`` (uniform branch only) computes bins
+    lo <= i < hi of the grid, bit for bit as in the whole-grid call (a
+    frequency shard; `fd_mode_sum_uniform`).
     """
     dev = pro.t_knots.device
     sig = _sigma(table, dev)
@@ -212,6 +215,8 @@ def fd_waveform_core(
         table, pro.sel, w1, w2, w1n=w1n, w2n=w2n,
     )
     if uniform is None:
+        if bin_range is not None:
+            raise ValueError("bin_range needs the uniform grid (uniform=(f0, df))")
         return fd_mode_sum(
             inp, torch.as_tensor(f_pos, dtype=pro.t_knots.dtype, device=dev),
             nodes_per_segment=nodes_per_segment, turnover_slots=turnover_slots,
@@ -219,19 +224,24 @@ def fd_waveform_core(
         )
     f0, dfreq = uniform
     nf = f_pos if isinstance(f_pos, int) else f_pos.shape[-1]
-    # caller-supplied offsets are in bins_per_run-sized runs, so the run size
-    # is honoured exactly; otherwise small grids shrink the run
-    if band_offsets is not None:
-        r_eff = bins_per_run
-    else:
-        r_eff = max(1, min(bins_per_run, nf // 8192))
+    r_eff = uniform_bins_per_run(nf, bins_per_run, band_offsets)
     return fd_mode_sum_uniform(
         inp, f0, dfreq, nf, bins_per_run=r_eff, band_runs=band_runs,
         band_offsets=band_offsets, turnover_slots=turnover_slots,
         negative_slots=negative_slots, extra_band_runs=extra_band_runs,
         band_offsets_extra=band_offsets_extra,
-        out_dtype=torch.float32 if out_f32 else None,
+        out_dtype=torch.float32 if out_f32 else None, bin_range=bin_range,
     )
+
+
+def uniform_bins_per_run(nf: int, bins_per_run: int = 64, band_offsets=None) -> int:
+    """The run size `fd_waveform_core` uses on a uniform grid of ``nf`` bins:
+    ``bins_per_run`` with caller-supplied window offsets (they count runs of
+    that size), else shrunk on small grids to max(1, min(bins_per_run,
+    nf // 8192)). A frequency shard starts on a multiple of it."""
+    if band_offsets is not None:
+        return bins_per_run
+    return max(1, min(bins_per_run, nf // 8192))
 
 
 def _detect_uniform_grid(freq: np.ndarray):

@@ -12,7 +12,10 @@ accumulate into four float32 spectra at the slot's window offset.
 
 The slots come in up to two groups (main slots, then the turnover / negative
 extra slots with their own narrower window), each a `DenseGroup`. Bin
-``g * r + b`` of a slot's window is output bin ``g0 * r + g * r + b``.
+``g * r + b`` of a slot's window is output bin ``g0 * r + g * r + b``; a
+window may start before the output (g0 < 0: a frequency shard's view of a
+window that begins in an earlier shard) or end past it, and its bins outside
+[0, nf) are dropped.
 
 `fd_dense_accumulate` dispatches on the device of its tensors: CPU tensors
 take the plain PyTorch version `fd_dense_accumulate_reference`; CUDA tensors
@@ -27,21 +30,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from . import cuda_build
+
 _TWO_PI = 2.0 * math.pi
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "fd_dense.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _ROW_ALIGN = 32  # bins: 128-byte aligned float32 rows
 _MAX_SLOTS = 512  # slots in all groups: the kernel's per-tile list is in shared memory
 _MAX_BINS = 2**31 - 2**16  # bin indices and padded rows stay int32
@@ -136,51 +133,14 @@ def fd_dense_accumulate_reference(
         local = torch.arange(n_g * r, device=dev)
         for s in range(grp.pc.shape[1]):
             pos = grp.g0[:, s, None].long() * r + local[None, :]  # (B, G r)
-            pos = torch.where(pos < nf, pos, nf)
+            pos = torch.where((pos >= 0) & (pos < nf), pos, nf)
             out.scatter_add_(2, pos[:, None, :].expand(n_b, 4, -1), _slot_contribution(grp, s, r))
     return out[..., :nf]
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fd_dense CUDA kernel cannot be built")
-    return path
-
-
-@functools.lru_cache(maxsize=None)
-def build_kernel() -> tuple[str, str]:
-    """Compile ``csrc/fd_dense.cu`` for sm_90a (once per source hash).
-
-    Returns (path of the shared library, compiler log). The library goes to
-    the package's ``_build/`` directory, keyed by a hash of the source.
-    """
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(_BUILD_DIR, f"fd_dense-{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path, "cached"
-    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp_path, _SOURCE,
-    ]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp_path, lib_path)
-    finally:
-        if os.path.exists(tmp_path):
-            os.remove(tmp_path)
-    return lib_path, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_kernel()[0])
+    lib = ctypes.CDLL(cuda_build.build("fd_dense")[0])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     group = [p, p, p, p, p, p, p, i, i]
     lib.fd_dense_launch.argtypes = group + group + [p, i, i, i, i, f, f, p]
@@ -291,7 +251,6 @@ __all__ = [
     "fd_dense_accumulate",
     "fd_dense_accumulate_reference",
     "check_call",
-    "build_kernel",
     "output_buffer",
     "padded_bins",
 ]

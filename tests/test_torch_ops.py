@@ -180,6 +180,13 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.utils\n"
         "import emri_frequencydomainwaveforms_tpu_torch.utils.autocorr\n"
         "import emri_frequencydomainwaveforms_tpu_torch.utils.plotting\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.parallel\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.parallel.mesh\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.graft_entry\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.ops.row_ops\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.ops.cuda_build\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.testing.pe_mesh\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.testing.mesh_cases\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'emri_frequencydomainwaveforms_tpu'))\n"

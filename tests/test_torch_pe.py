@@ -240,15 +240,17 @@ def test_run_emri_pe_td_template_and_td_injection(monkeypatch, template, inject_
 
 
 def test_template_rows_do_not_depend_on_their_batch_on_the_cpu(capsys):
-    # testing/batch_dependence.py on the CPU: a walker's knots, phase,
-    # amplitudes, Ylm and template are the same alone and in batches of 2,
-    # 4, 8 and 16 (exactly; on the card they are not, ROADMAP Queue 3)
+    # testing/batch_dependence.py on the CPU: every stage of the template
+    # (one RHS evaluation and its tangent, the dp5 trajectory, amplitudes,
+    # Ylm, splines, level-1 tables, dense pass, likelihood sum, the whole
+    # template and log L) and every fixed-order row kernel gives walkers 0
+    # and 5 the same row alone and in batches of 2, 4, 8 and 16, to the bit
     from emri_frequencydomainwaveforms_tpu_torch.testing import batch_dependence
 
-    batch_dependence.main(["cpu"])
-    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[batch] B=")]
-    assert len(lines) == 8
+    assert batch_dependence.main(["cpu"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[batch] ") and " worst " in ln and "(informational)" not in ln]
+    assert len(lines) == 18
     for ln in lines:
-        alone, in_batch = re.search(r"live knots (\d+) \(in the batch of 16: (\d+)\)", ln).groups()
-        values = [float(v) for v in re.findall(r"\d\.\d+e[+-]\d+", ln)]
-        assert alone == in_batch and len(values) == 5 and not any(values), ln
+        assert "worst 0.000e+00 (bit-exact;" in ln, ln
+        assert re.search(r"\[0@1 .*5@16 ", ln), ln
