@@ -229,6 +229,19 @@ def device_trace(fn, torch):
     return kernels, copies, busy_ms, wall_ms
 
 
+def host_us(fn, reps: int, torch) -> float:
+    """Host time per call of ``fn`` (microseconds, host clock, no
+    synchronize inside the loop): what a call costs the issuing thread."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -1737,15 +1750,27 @@ def row_records(torch, card, pe):
     must agree with the plain one within 2 n u max sum|terms|, and each
     element j of a running sum with the float64 running sum of its input
     within 2 (j + 1) u sum_{j' <= j} |x_j'|, so that a scan that drops or
-    shifts a term fails at the first element it touches. Returns the
-    kernel records, each with its call site's launches in the [pe] run."""
+    shifts a term fails at the first element it touches. Each kernel must
+    also equal its order model (testing/row_order.py, every addition of
+    csrc/row_ops.cu replayed in torch) bit for bit. Times: CUDA events per
+    call in a loop of calls, beside the profiler's device time per call;
+    where the events read well over the device time, the host's launch
+    path sets the rate. Returns the kernel records, each with its call
+    site's launches in the [pe] run."""
+    from emri_frequencydomainwaveforms_tpu_torch.testing.row_order import (row_cumsum_order,
+                                                                           row_sum_order)
+
     plain_of = {"row_sum": lambda x, mean=False: torch.mean(x, -1) if mean else torch.sum(x, -1),
                 "row_cumsum": lambda x: torch.cumsum(x, -1)}
+    model_of = {"row_sum": row_sum_order, "row_cumsum": row_cumsum_order}
     records = []
     for site, (fn, args, kw) in sorted(pe["row_inputs"].items()):
         name = fn.__name__
         got, ref = fn(*args, **kw), plain_of[name](*args, **kw)
+        model = model_of[name](*args, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(got, model), f"{site}: the kernel equals its order model bit for bit "
+              f"(max diff {float((got.double() - model.double()).abs().max()):.3e})")
         err = float((got.double() - ref.double()).abs().max())
         u = 2.0**-53 if got.dtype == torch.float64 else 2.0**-24
         if name == "row_cumsum":
@@ -1764,25 +1789,48 @@ def row_records(torch, card, pe):
             check(bool(torch.isfinite(got).all()) and err <= tol * scale,
                   f"{site}: kernel vs plain {err:.3e} <= {tol:.2e} x {scale:.3e}")
             held = f"/ max sum|terms| {err / scale:.3e} <= 2 n u = {tol:.2e}"
-        ms = time_ms(lambda: fn(*args, **kw), 20, torch)
-        plain_ms = time_ms(lambda: plain_of[name](*args, **kw), 20, torch)
-        library_ms = time_ms(lambda: plain_of[name](*args, **kw), 20, torch)
+        # in turns (kernel, plain, library, kernel), 200 calls each: at the
+        # small sites a call is a few microseconds of host time
+        ms_a = time_ms(lambda: fn(*args, **kw), 200, torch)
+        plain_ms = time_ms(lambda: plain_of[name](*args, **kw), 200, torch)
+        library_ms = time_ms(lambda: plain_of[name](*args, **kw), 200, torch)
+        ms_b = time_ms(lambda: fn(*args, **kw), 200, torch)
+        ms = (ms_a + ms_b) / 2
+        dev_ms = device_ms(lambda: fn(*args, **kw), 20, torch)
+        library_dev_ms = device_ms(lambda: plain_of[name](*args, **kw), 20, torch)
+        host_bound = dev_ms is not None and ms > 2.0 * dev_ms
+        # the host's share: the wrapper, the library call, the wrapper's one
+        # output allocation (a queue of long kernels caps these at the device rate)
+        shape = args[0].shape if name == "row_cumsum" else args[0].shape[:-1]
+        host = [host_us(f, 200, torch) for f in (lambda: fn(*args, **kw),
+                                                  lambda: plain_of[name](*args, **kw),
+                                                  lambda: args[0].new_empty(shape))]
         n_bytes = sum(t.numel() * t.element_size() for t in args) + got.numel() * got.element_size()
         ops = float(args[0].numel())
         peak = F64_OPS_PER_S if got.dtype == torch.float64 else F32_OPS_PER_S
         bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
         shapes = " @ ".join(str(tuple(t.shape)) for t in args)
-        print(f"[kernel] {site} on [pe]'s inputs {shapes} {args[0].dtype}: max|kernel-plain|="
-              f"{err:.3e} ({held}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} -> "
-              f"{100 * bound_ms / ms:.1f} % of bound; {pe['row_launches'][site]} launches from "
-              f"this call site in the [pe] run; on {card}", flush=True)
+        print(f"[kernel] {site} on [pe]'s inputs {shapes} {args[0].dtype}: equal to its order "
+              f"model bit for bit; max|kernel-plain|={err:.3e} ({held}); kernel {ms:.4f} ms "
+              f"({ms_a:.4f} / {ms_b:.4f}; device {fmt(dev_ms)}), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+              f"(device {fmt(library_dev_ms)}), bound {bound_ms:.4f} ms by {bound_by} -> "
+              f"{100 * bound_ms / ms:.1f} % of bound by events"
+              + (f", {100 * bound_ms / dev_ms:.1f} % by device time" if dev_ms else "")
+              + f"; {pe['row_launches'][site]} launches from this call site in the [pe] run; "
+              f"on {card}", flush=True)
+        if host_bound:
+            print(f"[kernel] {site}: host-bound: the events read {ms:.4f} ms a call against "
+                  f"{dev_ms:.4f} ms of device time, so the launch path sets the rate; host "
+                  f"time per call: the wrapper {host[0]:.2f} us (its output allocation "
+                  f"{host[2]:.2f} us), the library call {host[1]:.2f} us", flush=True)
         records.append({
             "name": site, "route": "cuda", "source": ROW_SOURCE, "replaces": None,
             "launches": pe["row_launches"][site], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "tables": "pe",
+            "library_ms": library_ms, "device_ms": dev_ms, "library_device_ms": library_dev_ms,
+            "host_bound": host_bound, "host_us": host[0], "library_host_us": host[1],
+            "alloc_host_us": host[2], "model_equal": True, "tables": "pe",
             "why": "fixed-order reduction: a walker's result independent of its batch",
         })
     return records

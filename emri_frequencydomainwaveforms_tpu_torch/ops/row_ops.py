@@ -19,6 +19,10 @@ with nvcc at first use) or raise. Each launch adds one to the wrapper's
 ``launches``. `row_sum` carries a forward-mode derivative (the row sum of
 the tangent), since the trajectory takes a ``torch.func.jvp`` through its
 right-hand side.
+
+The kernels' order of additions is set by the row length and the dtype
+through the constants below (the kernel's own are checked against them when
+the library loads); `testing/row_order.py` replays it.
 """
 
 from __future__ import annotations
@@ -30,50 +34,77 @@ import torch
 
 from . import cuda_build
 
+VECTOR_BYTES = 16  # a lane's load: 4 float32 or 2 float64 consecutive elements
+SMALL_MAX = 2048  # row_sum: n <= SMALL_MAX, one warp per row
+CHUNK = 512  # row_sum: n > SMALL_MAX, one warp per CHUNK elements, then chunk order
+SCAN_THREADS = 256  # row_cumsum: threads per row; a tile is SCAN_THREADS * SCAN_K elements
+SCAN_K = {torch.float32: 8, torch.float64: 4}
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _load() -> dict:
+    """Build and load ``csrc/row_ops.cu``: {dtype: (row_sum fn, row_cumsum fn)}."""
     lib = ctypes.CDLL(cuda_build.build("row_ops")[0])
+    lib.row_ops_constants.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.row_ops_constants.restype = None
+    got = (ctypes.c_longlong * 6)()
+    lib.row_ops_constants(got)
+    want = (VECTOR_BYTES, SMALL_MAX, CHUNK, SCAN_THREADS, SCAN_K[torch.float32],
+            SCAN_K[torch.float64])
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/row_ops.cu's order constants {tuple(got)} differ from "
+                           f"ops/row_ops.py's {want}")
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.row_sum_f64.argtypes = [p, p, ll, ll, ll, ctypes.c_double, p]
-    lib.row_sum_f32.argtypes = [p, p, ll, ll, ll, ctypes.c_float, p]
-    lib.row_cumsum_f64.argtypes = [p, p, ll, ll, ll, p]
-    lib.row_cumsum_f32.argtypes = [p, p, ll, ll, ll, p]
-    for fn in (lib.row_sum_f64, lib.row_sum_f32, lib.row_cumsum_f64, lib.row_cumsum_f32):
-        fn.restype = ctypes.c_int
-    return lib
+    kernels = {}
+    for dt, suffix, real in ((torch.float64, "f64", ctypes.c_double),
+                             (torch.float32, "f32", ctypes.c_float)):
+        rs, rc = getattr(lib, f"row_sum_{suffix}"), getattr(lib, f"row_cumsum_{suffix}")
+        rs.argtypes = [p, p, ll, ll, ll, real, p]
+        rc.argtypes = [p, p, ll, ll, ll, p]
+        rs.restype = rc.restype = ctypes.c_int
+        kernels[dt] = (rs, rc)
+    return kernels
 
 
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+def _kernels(dtype: torch.dtype):
+    """The typed C entry points for ``dtype`` (built and loaded at first use)."""
+    if dtype not in SCAN_K:
+        raise ValueError(f"expected a float32 or float64 tensor, got {dtype}")
+    return _load()[dtype]
 
 
-def _check_cuda(name: str, *xs: torch.Tensor) -> None:
-    dev = xs[0].device
-    for x in xs:
-        if x.device != dev:
-            raise ValueError(f"{name}: every tensor must lie on {dev}")
-        if x.dtype not in _SUFFIX or x.dtype != xs[0].dtype:
-            raise ValueError(f"{name}: expected float32 or float64 tensors of one dtype, "
-                             f"got {[t.dtype for t in xs]}")
+def _rows(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """``x`` as rows with unit element stride: (tensor, row count, row stride)."""
+    n = x.shape[-1]
+    if x.is_contiguous():
+        return x, x.numel() // n, n
+    rows = x.reshape(-1, n)
+    if rows.stride(-1) != 1:
+        rows = rows.contiguous()
+    return rows, rows.shape[0], rows.stride(0)
 
 
 def _launch_row_sum(x: torch.Tensor, mean: bool) -> torch.Tensor:
-    _check_cuda("row_sum", x)
+    # the RHS calls this twice per evaluation, ~10^5 times per PE run: the
+    # host path is kept short (one allocation, one ctypes call, the raw
+    # stream without a Stream object, the device switched only when it is
+    # not current)
+    fn = _kernels(x.dtype)[0]
+    index = x.get_device()
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return _launch_row_sum(x, mean)
     n = x.shape[-1]
-    rows = x.reshape(-1, n)
-    if n > 0 and rows.stride(-1) != 1:
-        rows = rows.contiguous()
-    out = torch.empty(rows.shape[0], dtype=x.dtype, device=x.device)
-    if rows.shape[0] == 0 or n == 0:
-        return out.zero_().reshape(x.shape[:-1])
-    scale = 1.0 / n if mean else 1.0
-    fn = getattr(_library(), f"row_sum_{_SUFFIX[x.dtype]}")
-    with torch.cuda.device(x.device):
-        err = fn(rows.data_ptr(), out.data_ptr(), rows.shape[0], n, rows.stride(0), scale,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    out = x.new_empty(x.shape[:-1])
+    if out.numel() == 0 or n == 0:
+        return out.zero_()
+    rows, n_rows, ld = (x, out.numel(), n) if x.is_contiguous() else _rows(x)
+    err = fn(rows.data_ptr(), out.data_ptr(), n_rows, n, ld, 1.0 / n if mean else 1.0,
+             torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"row_sum kernel launch failed: cudaError {err}")
     row_sum.launches += 1
-    return out.reshape(x.shape[:-1])
+    return out
 
 
 class _RowSum(torch.autograd.Function):
@@ -104,22 +135,23 @@ class _RowSum(torch.autograd.Function):
 
 def row_sum(x: torch.Tensor, mean: bool = False) -> torch.Tensor:
     """Sum (``mean=True``: mean) over the last axis, each row in an order
-    fixed by its length alone.
+    fixed by its length and dtype alone.
 
     CPU: ``torch.sum(x, -1)`` / ``torch.mean(x, -1)``. CUDA (float32 or
-    float64): one block per row, each thread adding a strided slice in
-    order, then a fixed tree (``csrc/row_ops.cu``); a mean is the sum times
-    1 / n.
+    float64): up to `SMALL_MAX` elements one warp per row, each lane adding
+    its 16-byte groups in order, then a fixed butterfly; longer rows in
+    chunks of `CHUNK` elements summed so, their partials added in chunk
+    order (``csrc/row_ops.cu``). A mean is the sum times 1 / n.
     """
+    if x.is_cuda:
+        if x.requires_grad or torch._C._are_functorch_transforms_active():
+            return _RowSum.apply(x, mean)
+        # no autograd.Function (~25 us of host time a call) where no
+        # derivative is taken
+        return _launch_row_sum(x, mean)
     if x.device.type == "cpu":
         return torch.mean(x, dim=-1) if mean else torch.sum(x, dim=-1)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_sum: unsupported device {x.device}")
-    if x.requires_grad or torch._C._are_functorch_transforms_active():
-        return _RowSum.apply(x, mean)
-    # the dp5 RHS calls this twice per evaluation: no autograd.Function
-    # (~25 us of host time a call) where no derivative is taken
-    return _launch_row_sum(x, mean)
+    raise ValueError(f"row_sum: unsupported device {x.device}")
 
 
 row_sum.launches = 0
@@ -127,32 +159,29 @@ row_sum.launches = 0
 
 def row_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Running sum over the last axis, each row in an order fixed by its
-    length alone.
+    length and dtype alone.
 
     CPU: ``torch.cumsum(x, -1)``. CUDA (float32 or float64): one block per
-    row, each thread a contiguous chunk in order, the chunks' offsets added
-    in order (``csrc/row_ops.cu``).
+    row, in tiles of `SCAN_THREADS` x `SCAN_K` elements: each thread's
+    elements in order, a fixed scan of the thread and warp totals, the
+    tiles' carry in order (``csrc/row_ops.cu``).
     """
     if x.device.type == "cpu":
         return torch.cumsum(x, dim=-1)
     if x.device.type != "cuda":
         raise ValueError(f"row_cumsum: unsupported device {x.device}")
-    _check_cuda("row_cumsum", x)
-    n = x.shape[-1]
-    rows = x.reshape(-1, n)
-    if n > 0 and rows.stride(-1) != 1:
-        rows = rows.contiguous()
-    out = torch.empty(rows.shape, dtype=x.dtype, device=x.device)
+    fn = _kernels(x.dtype)[1]
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out.reshape(x.shape)
-    fn = getattr(_library(), f"row_cumsum_{_SUFFIX[x.dtype]}")
+        return out
     with torch.cuda.device(x.device):
-        err = fn(rows.data_ptr(), out.data_ptr(), rows.shape[0], n, rows.stride(0),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        rows, n_rows, ld = _rows(x)
+        err = fn(rows.data_ptr(), out.data_ptr(), n_rows, x.shape[-1], ld,
+                 torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err != 0:
         raise RuntimeError(f"row_cumsum kernel launch failed: cudaError {err}")
     row_cumsum.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 row_cumsum.launches = 0

@@ -10,7 +10,10 @@ threads; on the CPU the wrappers run their plain versions. On the card
 (marked ``cuda``: skips without a GPU) the kernels are held to their plain
 versions, the float32 running sum at the PE path's width to a float64 one
 element by element, the kernels and the batched products to the same row
-invariance, and ``row_sum`` to its forward-mode derivative.
+invariance, and ``row_sum`` to its forward-mode derivative; and each kernel
+is held bit for bit to its order model (``testing/row_order.py``) at every
+call site's shape, on both sides of ``row_sum``'s one-warp threshold, and
+on rows that start off a 16-byte boundary or lie at an odd stride.
 
 This file imports no JAX, so it also runs on the GPU machine:
 ``python -m pytest tests/test_torch_row_ops.py --noconftest -q``.
@@ -29,6 +32,10 @@ from emri_frequencydomainwaveforms_tpu_torch.models.amplitude import (
 from emri_frequencydomainwaveforms_tpu_torch.models.geodesic import fundamental_frequencies
 from emri_frequencydomainwaveforms_tpu_torch.models.summation_fd import _polar_envelope
 from emri_frequencydomainwaveforms_tpu_torch.ops import row_ops
+from emri_frequencydomainwaveforms_tpu_torch.testing.row_order import (
+    row_cumsum_order,
+    row_sum_order,
+)
 
 BATCHES = (1, 2, 3, 8, 16)
 N = 16
@@ -169,3 +176,53 @@ def test_cuda_float32_running_sum_at_the_pe_width():
     terms = torch.arange(1, x.shape[-1] + 1, dtype=torch.float64)
     bound = 2.0 * terms * 2.0**-24 * torch.cumsum(x.double().abs(), -1)
     assert bool(((got - exact).abs() <= bound).all())
+
+
+# (kernel, rows, n, dtype): the PE path's call sites ([rhs], [amplitudes],
+# [likelihood], [level-1] and the stage report's float64 running sum), a
+# 2-way frequency shard of the 15,780 bins, and row_sum's threshold's sides
+MODEL_CASES = [
+    ("row_sum", 64, 256, torch.float64),
+    ("row_sum", 32768, 256, torch.float32),
+    ("row_sum", 64, 15780, torch.float64),
+    ("row_sum", 64, 7890, torch.float64),
+    ("row_sum", 64, row_ops.SMALL_MAX, torch.float32),
+    ("row_sum", 64, row_ops.SMALL_MAX + 1, torch.float32),
+    ("row_sum", 64, row_ops.SMALL_MAX, torch.float64),
+    ("row_sum", 64, row_ops.SMALL_MAX + 1, torch.float64),
+    ("row_cumsum", 64 * 48, 15780, torch.float32),
+    ("row_cumsum", 16 * 48, 15780, torch.float64),
+    ("row_cumsum", 64, 2 * row_ops.SCAN_THREADS * 8 + 77, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MODEL_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-{str(c[3]).split('.')[-1]}")
+def test_cuda_row_kernels_equal_the_order_model(case):
+    """Each kernel's bits are the order model's, for contiguous rows, rows
+    one element off a 16-byte boundary, rows at an odd stride, and a few
+    rows alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    name, n_rows, n, dtype = case
+    rng = np.random.default_rng(n_rows + n)
+    x = torch.as_tensor(rng.normal(size=(n_rows, n)) + rng.uniform(-0.5, 1.5, (n_rows, 1)),
+                        dtype=dtype).to("cuda")
+    fns = ([(row_ops.row_cumsum, row_cumsum_order)] if name == "row_cumsum" else
+           [(row_ops.row_sum, row_sum_order),
+            (lambda t: row_ops.row_sum(t, mean=True), lambda t: row_sum_order(t, mean=True))])
+    flat = torch.zeros(n_rows * n + 3, dtype=dtype, device="cuda")
+    flat[1:1 + n_rows * n] = x.reshape(-1)
+    shifted = flat[1:1 + n_rows * n].view(n_rows, n)
+    wide = torch.zeros(n_rows, n + 1, dtype=dtype, device="cuda")
+    wide[:, :n] = x
+    for kernel, model in fns:
+        want = model(x)
+        for layout in (x, shifted, wide[:, :n]):
+            got = kernel(layout)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, n_rows, n, dtype)
+        for rows in ([5], [7, 1, 2]):
+            assert torch.equal(kernel(shifted[rows])[0], want[rows[0]])
+            assert torch.equal(kernel(wide[rows, :n])[0], want[rows[0]])
