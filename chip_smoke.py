@@ -44,7 +44,15 @@ multiple-try RJ move), walker and frequency sharding on `torch.distributed`
 2 x 2 walker x frequency mesh against one process, every walker's knots,
 log L and template, then the multi-rank dry run's chain against its
 replay), and the TDI container and MLDC noise models on the PE injection
-and grid (`[tdi]`).
+and grid (`[tdi]`). Then it holds the port to the reference test suite's
+independent truths (`[truth]`, `testing/truth.py`: the golden cases against
+the scipy SPA pipeline through the general kernel and, at 1 yr, the banded
+path; a real fold against its brute-force integral through the general
+kernel and the banded production kernel at runs of 16 bins with 4 turnover
+slots; a plunging source's banded turnover against the general kernel).
+Beside `[moves]`, a correctness phase whose times are not metrics, it runs
+the port's three examples as a user runs them, each in a process of its own
+(`[examples]`).
 Last it times the dense pass on the tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead, and each row kernel on
@@ -157,6 +165,13 @@ MESH_RANKS = 4
 MESH_TOL = 1e-12
 # [tdi]: card vs CPU and tensor vs numpy, relative
 TDI_TOL = 1e-12
+# [truth]: the golden cases of tests/test_golden_fd.py (mode, years) at its
+# source (testing/truth_cases.py), each against the scipy SPA pipeline
+TRUTH_GOLDEN = (((2, 2, 0), 0.25), ((2, 2, 3), 0.25), ((2, 2, -1), 0.25), ((2, 0, 3), 0.25),
+                ((2, 2, 0), 1.0))
+# [examples]: the port's examples, run as a user runs them (main(), no
+# arguments: the current CUDA device, the default CI-quick sizes)
+EXAMPLES = ("torch_quickstart", "torch_fd_construction", "torch_fd_waveforms_tutorial")
 
 
 T_START = time.perf_counter()
@@ -478,12 +493,13 @@ class StageTimer:
         return run
 
 
-def band_edge_mask(wf, pro, tbl, f_at, dfu, edge_runs=2.0):
-    """True where ``f_at`` lies within ``edge_runs`` runs of a live mode
-    band's start, termination or maximum (lane 0): there the banded kernel's
-    level-1 nodes anchor against extrapolated t(f) while the general kernel
-    reads the time spline directly, a localized disagreement the gates report
-    apart from the rest."""
+def band_edge_mask(wf, pro, tbl, f_at, dfu, edge_runs=2.0, bins_per_run=BINS_PER_RUN):
+    """True where ``f_at`` lies within ``edge_runs`` runs (of ``bins_per_run``
+    bins of ``dfu``) of a live mode band's start, termination or maximum
+    (lane 0): there the banded kernel's level-1 nodes anchor against
+    extrapolated t(f) while the general kernel reads the time spline
+    directly, a localized disagreement the gates report apart from the
+    rest."""
     fphi_k, fr_k = wf.knot_frequencies(pro)
     sel_i = pro.sel.idx[0].cpu().numpy()
     live_m = pro.sel.mask[0].cpu().numpy().astype(bool)
@@ -492,7 +508,7 @@ def band_edge_mask(wf, pro, tbl, f_at, dfu, edge_runs=2.0):
           + tbl.ns[sel_i].astype(float)[:, None] * fr_k[None, :nl])
     edges = np.concatenate([fk[live_m][:, 0], fk[live_m][:, -1], fk[live_m].max(axis=1)])
     d = np.min(np.abs(f_at[:, None] - edges[None, :]), axis=1)
-    return d < edge_runs * BINS_PER_RUN * dfu
+    return d < edge_runs * bins_per_run * dfu
 
 
 def split_rel_l2(banded, general, sub, is_edge):
@@ -1648,6 +1664,202 @@ def drive_tdi(env, pe_run, fisher):
           f"{summary} (<= {TDI_TOL}); on {card}", flush=True)
 
 
+def drive_truth(env):
+    """The reference test suite's independent truths on the card
+    (`testing/truth.py` through `testing/truth_cases.py`, no duration solve:
+    every source has a fixed p0), each gated at the reference test's own
+    threshold. The golden cases through the general kernel against the
+    scipy SPA pipeline; the 1-yr (2,2,0) case again through the banded
+    uniform path (the CUDA dense pass at r = 1), held to the general run at
+    gate 1's thresholds; harmonic (2, 10) of a real plunging source against
+    its brute-force integral, through the general kernel with and without
+    its turnover branch and through the banded production kernel (runs of
+    16 bins, 4 turnover slots, 2048-run windows); and the plunging source's
+    banded evaluation with 4 turnover and 4 negative slots against the
+    general kernel. Every dense pass launched here is held to its plain
+    version. Returns the r = 16 tables and their launches."""
+    torch, dev, card = env["torch"], env["dev"], env["card"]
+    wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
+    cases = env["cases"]
+    from emri_frequencydomainwaveforms_tpu_torch.testing import truth
+    from emri_frequencydomainwaveforms_tpu_torch.testing import truth_cases as tc
+
+    def cplx(o):
+        return o[0][0].double().cpu().numpy() + 1j * o[1][0].double().cpu().numpy()
+
+    def launched(what, fn):
+        """``fn()`` with the dense pass counted and its tables kept."""
+        seen = []
+        fd_dense.fd_dense_accumulate.launches = 0
+        with dense_function(summation_fd, capturing(fd_dense.fd_dense_accumulate, seen)):
+            res = fn()
+        torch.cuda.synchronize()
+        n = fd_dense.fd_dense_accumulate.launches
+        check(n > 0 and n == len(seen), f"[truth] {what}: the fd_dense kernel launched ({n})")
+        for k, (groups, r, nf) in enumerate(seen):
+            compare(torch, fd_dense, cases, groups, r, nf, f"[truth] {what} call {k}")
+        return res, n, seen
+
+    # ---- the golden cases: no device named, the general kernel ----
+    for mode, t_years in TRUTH_GOLDEN:
+        case = tc.golden_case(mode, t_years)
+        check(case["pro"].t_knots.device == dev, f"[truth] golden prologue on {dev}")
+        check(np.isfinite(case["golden"]).all() and np.isfinite(case["ours"]).all(),
+              f"[truth] golden {mode} finite")
+        limit = 1e-5 if t_years == 1.0 else 1e-4  # the 1-yr case: its sanity bound too
+        print(f"[truth] golden {mode} at {t_years} yr, general kernel: Hann mismatch "
+              f"{case['mm']:.4e} (< {limit:g}), "
+              f"interior median pointwise rel {case['median_rel']:.4e} (< 1e-3); on {card}",
+              flush=True)
+        check(case["mm"] < limit, f"[truth] golden {mode} {t_years} yr mismatch {case['mm']:.3e}")
+        check(case["median_rel"] < 1e-3, f"[truth] golden {mode} median {case['median_rel']:.3e}")
+
+    # ---- the 1-yr (2,2,0) case on the banded uniform path ----
+    f_g = case["f_grid"]
+    nf_g, f0_g, df_g = len(f_g), float(f_g[0]), float(f_g[1] - f_g[0])
+    banded, n_golden, _ = launched("golden banded", lambda: wf.fd_waveform_core(
+        case["pro"], case["table"], nf_g, channels=False, uniform=(f0_g, df_g)))
+    general = wf.fd_waveform_core(case["pro"], case["table"], torch.as_tensor(f_g, device=dev),
+                                  channels=False)
+    r_g = wf.uniform_bins_per_run(nf_g)
+    is_edge = band_edge_mask(wf, case["pro"], case["table"], f_g, df_g, bins_per_run=r_g)
+    off, on, _ = split_rel_l2(banded, general, np.arange(nf_g), is_edge)
+    mm_b = truth.mismatch(case["golden"], cplx(banded), np.hanning(nf_g))
+    print(f"[truth] golden (2, 2, 0) at 1 yr, banded uniform path (r = {r_g}, {nf_g} bins, "
+          f"{n_golden} fd_dense launch): vs the general run rel L2 {off:.4e} off the band edges "
+          f"(< 1e-3), {on:.4e} on {int(is_edge.sum())} edge bins (< 0.05); golden Hann "
+          f"mismatch {mm_b:.4e}; on {card}", flush=True)
+    check(off < 1e-3 and on < 0.05, f"[truth] golden banded vs general {off:.3e} / {on:.3e}")
+    check(mm_b < 1e-5, f"[truth] golden banded mismatch {mm_b:.3e} < 1e-5")
+    del banded, general
+
+    # ---- the real fold: harmonic (2, 10) against its brute-force integral ----
+    fold = tc.fold_case()
+    fs = torch.as_tensor(fold["fs"], device=dev)
+    k1 = cplx(summation_fd.fd_mode_sum(fold["sm"], fs, turnover_slots=1))
+    k0 = cplx(summation_fd.fd_mode_sum(fold["sm"], fs, turnover_slots=0))
+    kb, n_fold, seen_fold = launched("fold banded", lambda: tc.fold_banded(fold))
+    amp = np.abs(fold["bv"]) / fold["scale"]
+    rms1, rms0, rms_b = (truth.rms(k, fold) for k in (k1, k0, kb))
+    gap = float(np.sqrt(np.mean(np.abs(kb - k1) ** 2)) / fold["scale"])
+    print(f"[truth] real fold, harmonic (2, 10) of a plunging source, {len(fs)} fringe bins "
+          f"(|brute force| / RMS {amp.min():.3f} .. {amp.max():.3f}): two-branch RMS {rms1:.4e} "
+          f"(< 0.12), single branch {rms0:.4e} (> 3x), banded production kernel (r = 16, 4 "
+          f"turnover slots, {fold['nf']} bins, {n_fold} fd_dense launch) {rms_b:.4e} (< 0.12), "
+          f"banded vs general gap {gap:.4e} (< 2e-2); on {card}",
+          flush=True)
+    check(amp.min() < 0.5 and amp.max() > 1.3, "[truth] the fold's fringes are present")
+    check(rms1 < 0.12 and rms_b < 0.12, f"[truth] fold RMS {rms1:.3e} / banded {rms_b:.3e}")
+    check(rms0 > 3 * rms1, f"[truth] single branch {rms0:.3e} > 3 x {rms1:.3e}")
+    check(gap < 2e-2, f"[truth] fold banded vs general gap {gap:.3e} < 2e-2")
+
+    # ---- the plunging source: banded with slots against general ----
+    (inp, (f0, df, nf), banded_full, b0), n_plunge, seen_pl = launched(
+        "plunging banded", tc.plunging_banded)
+    check(int(inp.dec_live.sum()) >= 1, "[truth] the plunging source turns over")
+    general = summation_fd.fd_mode_sum(
+        inp, torch.as_tensor(f0 + df * np.arange(nf), device=dev), turnover_slots=4,
+        negative_slots=4)
+    rels = []
+    for b, g in zip(banded_full, general):
+        b, g = b[0].double().cpu().numpy(), g[0].double().cpu().numpy()
+        check(np.isfinite(b).all() and np.isfinite(g).all(), "[truth] plunging outputs finite")
+        rels.append(float(np.sqrt(np.mean((b - g) ** 2)) / (np.sqrt(np.mean(b**2)) + 1e-300)))
+    b4, b0 = banded_full[0][0].double().cpu().numpy(), b0[0].double().cpu().numpy()
+    adds = float(np.sqrt(np.mean((b4 - b0) ** 2)) / np.sqrt(np.mean(b0**2)))
+    print(f"[truth] plunging source banded (r = 16, 4 turnover + 4 negative slots, {nf} bins) "
+          f"vs general per channel rel L2 {', '.join(f'{x:.4e}' for x in rels)} (< 2e-2); the "
+          f"extra slots add {adds:.4e} (in (1e-4, 0.5)); {n_plunge} fd_dense launches (with and "
+          f"without the extra slots); on {card}", flush=True)
+    check(max(rels) < 2e-2, f"[truth] plunging banded vs general {max(rels):.3e} < 2e-2")
+    check(1e-4 < adds < 0.5, f"[truth] the extra slots add {adds:.3e}")
+    return dict(tables_fold=seen_fold[0], launches_fold=n_fold, tables_plunge=seen_pl[0],
+                launches_plunge=n_plunge)
+
+
+# one example in a fresh process: its main() with no arguments, then its
+# checks, its dense-pass launches (the count starts at 0 with the process)
+# and its seconds as the last line
+EXAMPLE_RUNNER = """
+import importlib.util, json, os, sys, time
+root, name = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+import torch
+from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
+spec = importlib.util.spec_from_file_location(name, os.path.join(root, "examples", name + ".py"))
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)
+t0 = time.perf_counter()
+checks = module.main([])
+torch.cuda.synchronize()
+print(json.dumps(dict(checks, launches=fd_dense.fd_dense_accumulate.launches,
+                      seconds=time.perf_counter() - t0)))
+"""
+
+
+def drive_examples(env, beside, timeout_s=600):
+    """The port's three examples as a user runs them (``main()`` with no
+    arguments: the current CUDA device, the CI-quick default sizes), each in
+    a process of its own, the three at once, the kernels already built,
+    while ``beside()`` runs in this process (a phase whose times are not
+    metrics). Prints each one's own lines, its checks, launches and seconds,
+    and gates them: each exits 0 (the examples keep their originals'
+    asserts) and its checks hold. Returns ``beside()``'s result. A child
+    still running when this returns or raises is killed."""
+    import tempfile
+
+    card = env["card"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    children = []
+    try:
+        for name in EXAMPLES:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen([sys.executable, "-c", EXAMPLE_RUNNER, root, name],
+                                    cwd=root, stdout=out, stderr=err)
+            children.append((name, proc, out, err))
+        beside_out = beside()
+        for _, proc, _, _ in children:
+            proc.wait(timeout=timeout_s)
+    finally:
+        for _, proc, _, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, proc, stdout, stderr in children:
+        rc = proc.returncode
+        stdout.seek(0)
+        stderr.seek(0)
+        lines = stdout.read().splitlines()
+        if rc != 0 or not lines:
+            print(stderr.read()[-4000:], flush=True)
+        check(rc == 0 and bool(lines), f"[examples] examples/{name}.py exited {rc}")
+        result = json.loads(lines[-1])
+        for line in lines[:-1]:
+            print(f"[examples] {name}: {line}", flush=True)
+        launches, secs = result.pop("launches"), result.pop("seconds")
+        summary = ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in result.items())
+        print(f"[examples] examples/{name}.py main(): {summary}; {launches} fd_dense launches; "
+              f"{secs:.1f} s in its own process beside the other two and [moves]; on {card}",
+              flush=True)
+        check(all(np.isfinite(v) for v in result.values()), f"[examples] {name} checks finite")
+        out[name] = dict(result, launches=launches)
+    quick = out["torch_quickstart"]
+    check(quick["finite"] and quick["nonzero_bins"] > 0 and 1e-21 < quick["peak_hp"] < 1e-15,
+          f"[examples] quickstart spectrum {quick}")
+    constr = out["torch_fd_construction"]
+    check(constr["mismatch"] < constr["gate"] and abs(constr["ratio_median"] - 1.0) < 0.05,
+          f"[examples] fd_construction {constr}")
+    tut = out["torch_fd_waveforms_tutorial"]
+    check(tut["overlap"] > 0.99 and tut["mm_windowed"] < 1e-2 and tut["collapse"] < 1e-2
+          and tut["downsample_rel"] < 1e-3 and 0.0 < tut["frac_220"] < 1.0,
+          f"[examples] tutorial {tut}")
+    check(quick["launches"] > 0 and tut["launches"] > 0,
+          "[examples] the banded examples launched the fd_dense kernel")
+    return beside_out
+
+
 def drive_mesh(env, grid):
     """Walker and frequency sharding on the card, at the PE likelihood's full
     width (`testing/pe_mesh.py`; p0 fixed, no duration solve): 16 walkers
@@ -2107,8 +2319,14 @@ def main() -> None:
     drive_diagnostics(env, pe)
     phase_done("diagnostics")
     # ---- the move library and its schedule, the TDI / MLDC layer, on the PE likelihood ----
-    moves = drive_moves(env, pe, fisher)
-    phase_done("moves")
+    # with the port's examples beside it, each in a process of its own
+    def moves_phase():
+        out = drive_moves(env, pe, fisher)
+        phase_done("moves")
+        return out
+
+    moves = drive_examples(env, moves_phase)
+    phase_done("examples")
     rj = drive_rj(env, pe, moves)
     phase_done("rj")
     # ---- walker and frequency sharding on torch.distributed, the dry run ----
@@ -2119,6 +2337,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_done("tdi")
+    # ---- the reference's independent truths ----
+    truth = drive_truth(env)
+    torch.cuda.empty_cache()
+    phase_done("truth")
     # ---- phase 8: the kernel on the main paths' own tables ----
     records = []
     for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
@@ -2135,6 +2357,9 @@ def main() -> None:
         (scan["tables"], "fd_dense_accumulate[scan]", 99, scan["launches"], 10),
         (pallas["tables"], "fd_dense_accumulate_batched[pallas-names]", 203, pallas["launches"], 10),
         (pallas["tables_1"], "fd_dense_accumulate[pallas-names]", 99, pallas["launches_1"], 100),
+        (truth["tables_fold"], "fd_dense_accumulate[truth-fold]", 99, truth["launches_fold"], 100),
+        (truth["tables_plunge"], "fd_dense_accumulate[truth-plunge]", 99,
+         truth["launches_plunge"], 100),
     ):
         n_b = groups[0].pc.shape[0]
         err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")

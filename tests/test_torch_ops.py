@@ -187,6 +187,8 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.ops.cuda_build\n"
         "import emri_frequencydomainwaveforms_tpu_torch.testing.pe_mesh\n"
         "import emri_frequencydomainwaveforms_tpu_torch.testing.mesh_cases\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.testing.truth\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.testing.truth_cases\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'emri_frequencydomainwaveforms_tpu'))\n"
@@ -201,12 +203,16 @@ def test_port_imports_no_jax():
 
 
 def test_port_and_smoke_sources_name_no_jax_import():
-    # no line of the port's sources or of chip_smoke.py imports JAX or the
-    # JAX package, at module level or inside a function
+    # no line of the port's sources, of chip_smoke.py or of the port's
+    # examples imports JAX or the JAX package, at module level or inside a
+    # function
     root = Path(__file__).resolve().parents[1]
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|emri_frequencydomainwaveforms_tpu)(\s|\.|$)")
     files = sorted((root / "emri_frequencydomainwaveforms_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
+    examples = sorted((root / "examples").glob("torch_*.py"))
+    assert len(examples) == 3
+    files += examples
     assert len(files) > 30
     bad = [f"{f.relative_to(root)}:{i + 1}" for f in files
            for i, line in enumerate(f.read_text().splitlines()) if pattern.match(line)]
