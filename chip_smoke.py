@@ -52,7 +52,12 @@ kernel and the banded production kernel at runs of 16 bins with 4 turnover
 slots; a plunging source's banded turnover against the general kernel).
 Beside `[moves]`, a correctness phase whose times are not metrics, it runs
 the port's three examples as a user runs them, each in a process of its own
-(`[examples]`).
+(`[examples]`), and in one more process the root-level tools' torch twins
+(`[tools]`, `tools_child`: gate 1's banded-vs-general ablation at full width
+with the dense pass at runs of 64, 32 and 16 bins, the negative-frequency
+survey's and the multipole-truncation study's per-source physics, the
+calibrators' model sides and one held-out RWZ mode, each on the card
+against the CPU, and the eccentric table re-cleaned from its raw solve).
 Last it times the dense pass on the tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead, and each row kernel on
@@ -1860,6 +1865,265 @@ def drive_examples(env, beside, timeout_s=600):
     return beside_out
 
 
+# [tools]: the root-level tools' torch twins (tools/torch_*.py,
+# tools/rwz/torch_*.py), in a process of their own beside [moves]
+TOOLS_RUNNER = """
+import json, sys
+root, spec = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+import chip_smoke
+print(json.dumps(chip_smoke.tools_child(spec)), flush=True)
+"""
+TOOLS_THREADS = 2  # the child's intra-op threads, beside [moves] and [examples]
+TOOLS_RECORD_RUNS = (32, 16)  # the xcheck's bins per run whose launches are kernel records
+# per-knot mode powers, card against CPU on the card's knots: the weak
+# harmonics that carry the negative-f and high-l power keep the float32
+# projection's order-dependent noise (2.80e-05 / 9.50e-06 on an H100)
+TOOLS_KNOT_TOL = 1e-4
+TOOLS_HOLDOUT_TOL = 1e-5  # held-out deviations, card against CPU, absolute
+TOOLS_FLUX_TOL = 5e-5  # B_lm's F_model (float32 projection), card against CPU
+TOOLS_F64_TOL = 1e-12  # model_amplitudes_f64, of the node's largest amplitude
+TOOLS_MM_TOL = 1e-3  # the l 4/6 mismatch, card against CPU, relative
+TOOLS_HOLDOUT = ((2, 2, 0), 3)  # the held-out mode and its midpoints
+
+
+def tools_child(spec):
+    """The [tools] phase, in its own process: each twin's per-source or
+    per-node functions on the card, held against the same functions on the
+    CPU, the xcheck twin at full width with its dense-pass launches counted
+    and its r = 32 / r = 16 tables saved for the kernel records, and the
+    ecc table's re-clean from the raw solve. Prints its lines and returns
+    its numbers; every check raises."""
+    import tempfile
+
+    import torch
+
+    torch.set_num_threads(TOOLS_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from emri_frequencydomainwaveforms_tpu_torch.models import summation_fd
+    from emri_frequencydomainwaveforms_tpu_torch.models import waveform as wf
+    from emri_frequencydomainwaveforms_tpu_torch.models.amplitude import default_mode_table
+    from emri_frequencydomainwaveforms_tpu_torch.models.inspiral import schwarz_ecc_flux_inspiral
+    from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
+    from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
+    from tools import torch_convergence_l56 as l56
+    from tools import torch_negative_f_survey as neg
+    from tools import torch_xcheck_diag as xcheck
+    from tools.rwz import torch_calibrate as cal
+    from tools.rwz import torch_calibrate_ecc as ecc
+    from tools.rwz import torch_holdout_check as holdout
+    from tools.rwz.eccentric import darwin_orbit
+
+    dev, card = torch.device(spec["device"]), spec["card"]
+    m_big, mu, e0, p0 = spec["source"]
+    out, t_start = {}, time.perf_counter()
+
+    def say(text):
+        print(f"[tools] {text}; on {card}", flush=True)
+
+    # ---- the xcheck twin at full width: gate 1's configuration ----
+    t0 = time.perf_counter()
+    f_np = xcheck.positive_grid()
+    nf, dfu = len(f_np), float(f_np[1] - f_np[0])
+    pro, table_k = xcheck.gate1_prologue(dev)
+    sub = np.arange(0, nf, 617)
+    seen = []
+    fd_dense.fd_dense_accumulate.launches = 0
+    with dense_function(summation_fd, capturing(fd_dense.fd_dense_accumulate, seen)):
+        banded = {r: xcheck.banded(pro, table_k, f_np, sub, r) for r in (64, 32, 16)}
+    torch.cuda.synchronize()
+    launches = fd_dense.fd_dense_accumulate.launches
+    check(launches == len(seen) == 3, f"[tools] xcheck: 3 fd_dense launches ({launches})")
+    general = {s: xcheck.general(pro, table_k, f_np[sub], s) for s in (32, 64)}
+    xcheck_s = time.perf_counter() - t0
+    tables_path = os.path.join(spec["tables_dir"], "tables.pt")
+    saved = {}
+    for groups, r, nf_t in seen:
+        if r not in TOOLS_RECORD_RUNS:
+            continue
+        err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"[tools] xcheck r = {r}")
+        saved[f"r{r}"] = dict(groups=[tuple(x.cpu() for x in g) for g in groups], r=r, nf=nf_t)
+        say(f"xcheck banded r = {r} at 1 yr ({nf_t} bins, {groups[0].pc.shape[1]} + "
+            f"{groups[1].pc.shape[1] if len(groups) > 1 else 0} slots of "
+            f"{groups[0].pc.shape[2]} runs, B = 1): kernel vs plain max|diff| {err:.3e} "
+            f"(rel {err / scale:.3e} <= 1e-5)")
+    torch.save(saved, tables_path)
+    is_edge = band_edge_mask(wf, pro, table_k, f_np[sub], dfu)
+    off = max(float(np.sqrt(np.mean((b[~is_edge] - g[~is_edge]) ** 2)) / np.sqrt(np.mean(b**2)))
+              for b, g in zip(banded[64], general[32]))
+    base = xcheck.rel(banded[64], general[32])
+    rows = xcheck.ablation(banded[64], banded[32], banded[16], general[32], general[64])
+    check(all(np.isfinite(x).all() for v in (*banded.values(), *general.values()) for x in v),
+          "[tools] xcheck outputs finite")
+    say(f"xcheck_diag twin (1 yr, rwz, {len(table_k.ls)} slots, {len(sub)} bins, "
+        f"{launches} fd_dense launches at r = 64, 32, 16): baseline banded(r=64) vs "
+        f"general(s=32) {base:.3e} over all bins, {off:.4e} off the band edges (< 1e-3, gate 1); "
+        + "; ".join(f"{label} {value:.3e}" for label, value in rows)
+        + f"; {xcheck_s:.1f} s")
+    check(off < 1e-3, f"[tools] xcheck baseline off the band edges {off:.3e} < 1e-3")
+    out.update(launches={f"r{r}": sum(1 for _, r_t, _ in seen if r_t == r)
+                         for r in TOOLS_RECORD_RUNS},
+               tables_path=tables_path, xcheck_baseline=base,
+               xcheck_off_edges=off, xcheck_ablation=dict(rows))
+    del banded, general, pro, seen
+
+    # ---- the negative-f survey's and power_by_l's per-source physics ----
+    def knots(t_years, max_steps):
+        traj = schwarz_ecc_flux_inspiral(m_big, mu, p0, e0, t_years=t_years, max_steps=max_steps,
+                                         device=dev)
+        return traj, int(traj.n[0])
+
+    table = default_mode_table(30)
+    traj, n = knots(1.0, 512)
+    p_k, e_k = traj.p[0, :n], traj.e[0, :n]
+    frac = neg.knot_negative_fraction(p_k, e_k, table)
+    frac_cpu = neg.knot_negative_fraction(p_k.cpu(), e_k.cpu(), table)
+    frac_e2e = neg.negative_fraction(m_big, mu, p0, e0, 1.0, table, device="cpu")
+    gap = abs(frac / frac_cpu - 1.0)
+    say(f"negative_f_survey twin at the [pe] source (M {m_big:g}, mu {mu:g}, e0 {e0}, p0 "
+        f"{p0:.6f}, 1 yr, {n} knots): negative-f power fraction {frac:.6e} on the card, "
+        f"{frac_cpu:.6e} on the CPU on the card's knots (rel {gap:.2e} <= {TOOLS_KNOT_TOL:g}), "
+        f"{frac_e2e:.6e} on the CPU's own trajectory")
+    check(0.0 <= frac < 1e-4 and gap <= TOOLS_KNOT_TOL, f"[tools] survey fraction {frac:.3e}")
+    table_hi = default_mode_table(20, l_max=10)
+    traj, _ = knots(l56.T_DRAW, 256)
+    live = (torch.arange(traj.t.shape[1], device=dev) < traj.n[0]).to(traj.t.dtype)
+    th, ph = l56.CASES[0][3:]
+    pb = l56.knot_power_by_l(traj.p[0], traj.e[0], live, th, ph, table_hi)
+    pb_cpu = l56.knot_power_by_l(traj.p[0].cpu(), traj.e[0].cpu(), live.cpu(), th, ph, table_hi)
+    gap_l = max(abs(pb[l] / pb_cpu[l] - 1.0) for l in pb)
+    tot = sum(pb.values())
+    say(f"convergence_l56 twin power_by_l at the [pe] source ({l56.T_DRAW} yr, "
+        f"{int(traj.n[0])} knots, {table_hi.num_modes} modes): l = 5,6 / 7,8 / 9,10 power "
+        f"fractions {(pb[5] + pb[6]) / tot:.4e} / {(pb[7] + pb[8]) / tot:.4e} / "
+        f"{(pb[9] + pb[10]) / tot:.4e}; card vs CPU on the card's knots worst l rel "
+        f"{gap_l:.2e} (<= {TOOLS_KNOT_TOL:g})")
+    check(gap_l <= TOOLS_KNOT_TOL and pb[2] > pb[6] > pb[10] > 0.0, "[tools] power_by_l")
+    mm = l56.fd_mismatch_lpair(m_big, mu, p0, e0, th, ph, l56.T_CASE, device=dev)
+    mm_cpu = l56.fd_mismatch_lpair(m_big, mu, p0, e0, th, ph, l56.T_CASE, device="cpu")
+    gap_mm = abs(mm / mm_cpu - 1.0)
+    say(f"convergence_l56 twin fd_mismatch_lpair l 4/6 at the [pe] source ({l56.T_CASE} yr, "
+        f"60000 bins, general kernel): {mm:.6e} on the card, {mm_cpu:.6e} on the CPU "
+        f"(rel {gap_mm:.2e} <= {TOOLS_MM_TOL:g})")
+    check(0.0 < mm < 1e-2 and gap_mm <= TOOLS_MM_TOL, f"[tools] l 4/6 mismatch {mm:.3e}")
+    out.update(neg_fraction=frac, power_by_l=pb, mismatch_l46=mm)
+    del traj, live
+
+    # ---- the calibrators' model sides ----
+    table_b = default_mode_table(2, l_max=8)
+    pairs, xs = cal.calibration_pairs(table_b), cal.x_grid()
+    fm = cal.model_flux_modes(pairs, xs, table_b, dev)
+    fm_cpu = cal.model_flux_modes(pairs, xs, table_b, "cpu")
+    gap_b = float(np.max(np.abs(fm / fm_cpu - 1.0)))
+    say(f"calibrate twin F_model over the {len(xs)}-point x grid for {len(pairs)} (l, m) "
+        f"families, one batch: card vs CPU worst rel {gap_b:.2e} (<= {TOOLS_FLUX_TOL:g})")
+    check(np.isfinite(fm).all() and gap_b <= TOOLS_FLUX_TOL, f"[tools] F_model {gap_b:.3e}")
+    from emri_frequencydomainwaveforms_tpu_torch.models import _rwz_ecc_data as ecc_data
+
+    table_e = default_mode_table(12, l_max=6)
+    worst_a, n_nodes = 0.0, 0
+    for i in range(0, ecc_data.N_U, 3):
+        for j in range(0, ecc_data.N_E, 3):
+            u, e = ecc_data.U0 + i * ecc_data.DU, ecc_data.E0 + j * ecc_data.DE
+            p = ecc.p_of_node(u, e)
+            orb = darwin_orbit(p, float(e), 1024 if i < ecc_data.N_U // 3 else 512)
+            args = (p, float(e), orb, table_e, table_e.ls, table_e.ms, table_e.ns)
+            a = ecc.model_amplitudes_f64(*args, device=dev)
+            a_cpu = ecc.model_amplitudes_f64(*args, device="cpu")
+            worst_a = max(worst_a, float(np.max(np.abs(a - a_cpu)) / np.max(np.abs(a_cpu))))
+            n_nodes += 1
+    say(f"calibrate_ecc twin model_amplitudes_f64 at {n_nodes} nodes of the {ecc_data.N_U} x "
+        f"{ecc_data.N_E} (u, e) grid, {table_e.num_modes} modes: card vs CPU worst "
+        f"{worst_a:.2e} of the node's largest amplitude (<= {TOOLS_F64_TOL:g})")
+    check(worst_a <= TOOLS_F64_TOL, f"[tools] model_amplitudes_f64 {worst_a:.3e}")
+    raw = os.path.join(spec["root"], "tools", "rwz", "_rwz_ecc_data_raw.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ecc.py")
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            rows_raw, _ = ecc.from_raw(raw, path)
+    n_e_raw = next(iter(rows_raw.values())).shape[1]
+    inner = max(float(np.max(np.abs(r[:, :-1] - ecc_data.R_TABLE[k][:, :n_e_raw - 1])))
+                for k, r in rows_raw.items())
+    edge = max(float(np.max(np.abs(r[:, -1] - ecc_data.R_TABLE[k][:, n_e_raw - 1])))
+               for k, r in rows_raw.items())
+    say(f"calibrate_ecc twin --from-raw (tools/rwz/_rwz_ecc_data_raw.npz, {len(rows_raw)} rows "
+        f"of {ecc_data.N_U} x {n_e_raw}) against the committed {len(ecc_data.R_TABLE)}-row "
+        f"{ecc_data.N_U} x {ecc_data.N_E} table: max |dR| {inner:.2e} on the first "
+        f"{n_e_raw - 1} e-columns (<= 1e-9: the committed table's 10-digit text), {edge:.3e} on "
+        f"column {n_e_raw - 1}, whose neighbours the extension's columns changed")
+    check(inner <= 1e-9, f"[tools] from-raw vs committed table {inner:.3e}")
+
+    # ---- one held-out mode at a few midpoints (the RWZ solve on the host) ----
+    key, n_mid = TOOLS_HOLDOUT
+    table_h = default_mode_table(12, l_max=4)
+    mode_idx = ecc.mode_index(table_h, [key[:2]], [key[2]])
+    devs = []
+    for u, e in list(zip(*holdout.midpoints(6)))[:n_mid]:
+        d, a = holdout.midpoint_devs(u, e, table_h, mode_idx, dev)[key]
+        d_cpu, a_cpu = holdout.midpoint_devs(u, e, table_h, mode_idx, "cpu")[key]
+        check(abs(d - d_cpu) <= TOOLS_HOLDOUT_TOL and abs(a - a_cpu) <= TOOLS_HOLDOUT_TOL,
+              f"[tools] holdout {key} card vs CPU")
+        devs.append((d, a))
+    say(f"holdout_check twin {key} at {n_mid} midpoints: R dev "
+        f"{', '.join(f'{d:.2e}' for d, _ in devs)}, amp dev "
+        f"{', '.join(f'{a:.2e}' for _, a in devs)} (card = CPU within {TOOLS_HOLDOUT_TOL:g})")
+    check(np.isfinite(devs).all(), "[tools] holdout deviations finite")
+    out.update(holdout=devs, seconds=time.perf_counter() - t_start)
+    return out
+
+
+def start_tools(env, pe):
+    """Start the [tools] child on the [pe] source: (process, stdout, stderr,
+    the directory its tables go to)."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tables_dir = tempfile.mkdtemp()
+    spec = dict(root=root, device=str(env["dev"]), card=env["card"], tables_dir=tables_dir,
+                source=[1e6, 10.0, 0.35, float(pe["out"]["p0"])])
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", TOOLS_RUNNER, root, json.dumps(spec)],
+                            cwd=root, stdout=out, stderr=err)
+    return proc, out, err, tables_dir
+
+
+def finish_tools(env, child, timeout_s=600):
+    """Wait for the [tools] child, relay its lines and load its tables onto
+    the card. A child still running when this returns or raises is
+    killed."""
+    import shutil
+
+    torch = env["torch"]
+    proc, stdout, stderr, tables_dir = child
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout.seek(0)
+    stderr.seek(0)
+    lines = stdout.read().splitlines()
+    ok = proc.returncode == 0 and bool(lines)
+    for line in lines[:-1] if ok else lines:
+        print(line, flush=True)
+    if not ok:
+        print(stderr.read()[-4000:], flush=True)
+    check(ok, f"[tools] the tools process exited {proc.returncode}")
+    result = json.loads(lines[-1])
+    saved = torch.load(result["tables_path"])
+    shutil.rmtree(tables_dir, ignore_errors=True)
+    fd_dense, dev = env["fd_dense"], env["dev"]
+    result["tables"] = {
+        name: ([fd_dense.DenseGroup(*(x.to(dev) for x in g)) for g in rec["groups"]], rec["r"],
+               rec["nf"])
+        for name, rec in saved.items()
+    }
+    print(f"[tools] {result['seconds']:.1f} s in its own process beside [moves] and "
+          f"[examples]; on {env['card']}", flush=True)
+    return result
+
+
 def drive_mesh(env, grid):
     """Walker and frequency sharding on the card, at the PE likelihood's full
     width (`testing/pe_mesh.py`; p0 fixed, no duration solve): 16 walkers
@@ -2325,8 +2589,11 @@ def main() -> None:
         phase_done("moves")
         return out
 
+    tools_child = start_tools(env, pe)
     moves = drive_examples(env, moves_phase)
     phase_done("examples")
+    tools = finish_tools(env, tools_child)
+    phase_done("tools")
     rj = drive_rj(env, pe, moves)
     phase_done("rj")
     # ---- walker and frequency sharding on torch.distributed, the dry run ----
@@ -2360,6 +2627,8 @@ def main() -> None:
         (truth["tables_fold"], "fd_dense_accumulate[truth-fold]", 99, truth["launches_fold"], 100),
         (truth["tables_plunge"], "fd_dense_accumulate[truth-plunge]", 99,
          truth["launches_plunge"], 100),
+        *((tools["tables"][f"r{r}"], f"fd_dense_accumulate[tools-r{r}]", 99,
+           tools["launches"][f"r{r}"], 100) for r in TOOLS_RECORD_RUNS),
     ):
         n_b = groups[0].pc.shape[0]
         err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")

@@ -1,0 +1,142 @@
+"""The survey twins against their JAX originals, on the CPU:
+`tools/torch_negative_f_survey.py` (from `tools/negative_f_survey.py`) and
+`tools/torch_convergence_l56.py`'s per-source power by l (from
+`tools/convergence_l56.py`).
+
+No duration solve runs here: each per-source function takes p0. The draws
+are the originals' to the bit. Per-source physics is held to the JAX
+computation on the reference trajectory's knots carried into the port:
+the amplitudes are float32 projections in both packages (the same
+2e-6-of-family-maximum noise as `tests/test_torch_rwz.py`), which a power
+sum carries as ~1e-6 relative, so the tolerance is 1e-5 relative. End to
+end (each package integrating its own trajectory from the same p0) the same
+1e-5 holds at sources whose trajectories stop on the same knot count (near
+a plunge the two dp5 trajectories may stop a knot apart, as ROADMAP Queue 3
+records).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from emri_frequencydomainwaveforms_tpu.models import amplitude as j_amp
+from emri_frequencydomainwaveforms_tpu.models.geodesic import fundamental_frequencies as j_ff
+from emri_frequencydomainwaveforms_tpu.models.inspiral import schwarz_ecc_flux_inspiral as j_traj
+from emri_frequencydomainwaveforms_tpu.utils.ylm import spin_weighted_ylm as j_ylm
+from emri_frequencydomainwaveforms_tpu_torch.models import amplitude as t_amp
+from tools import torch_convergence_l56 as t_l56
+from tools import torch_negative_f_survey as t_neg
+
+TOL = 1e-5
+
+
+def _knots(m_big, mu, p0, e0, t_years, max_steps):
+    traj = j_traj(m_big, mu, p0, e0, t_years=t_years, max_steps=max_steps)
+    n = int(traj.n)
+    return np.asarray(traj.p)[:n], np.asarray(traj.e)[:n], int(traj.t.shape[0])
+
+
+def _reference_negative_fraction(p_k, e_k, table):
+    """`tools/negative_f_survey.py`'s per-draw computation on given knots."""
+    a_re, a_im = j_amp.mode_amplitudes(jnp.asarray(p_k), jnp.asarray(e_k), table,
+                                       tail=True, factorized=True, rwz=True)
+    om_phi, om_r = j_ff(jnp.asarray(p_k), jnp.asarray(e_k))
+    th, ph = 0.7, 0.5
+    yp = j_ylm(table.ls, table.ms, th, ph)
+    ym = j_ylm(table.ls, -table.ms, th, ph)
+    pw_tot = np.asarray(a_re) ** 2 + np.asarray(a_im) ** 2
+    y2 = (np.asarray(yp[0]) ** 2 + np.asarray(yp[1]) ** 2
+          + np.asarray(ym[0]) ** 2 + np.asarray(ym[1]) ** 2)
+    pw_tot = pw_tot * y2[None, :]
+    om = (table.ms[None, :] * np.asarray(om_phi)[:, None]
+          + table.ns[None, :] * np.asarray(om_r)[:, None])
+    neg = om < 0.0
+    return float(np.sum(pw_tot[neg]) / np.sum(pw_tot))
+
+
+def test_survey_draws_are_the_original():
+    from emri_frequencydomainwaveforms_tpu.inference.prior import ProbDistContainer, uniform_dist
+
+    rng = np.random.default_rng(2601996)
+    priors = ProbDistContainer({
+        0: uniform_dist(np.log(5e5), np.log(4e6)),
+        1: uniform_dist(np.log(1e-5), np.log(1e-4)),
+        2: uniform_dist(0.1, 0.5),
+    })
+    ref = []
+    for _ in range(6):
+        lm, leta, e0 = np.asarray(priors.rvs(size=1, random_state=rng)).ravel()
+        m_big = float(np.exp(lm))
+        ref.append((m_big, float(np.exp(leta) * m_big), float(e0)))
+    assert np.array_equal(t_neg.draw_sources(6, 2601996), np.asarray(ref))
+
+
+@pytest.mark.parametrize("draw", [0, 1])
+def test_negative_fraction_matches_the_original(draw):
+    m_big, mu, e0 = t_neg.draw_sources(2, 2601996)[draw]
+    table_j, table_t = j_amp.default_mode_table(10), t_amp.default_mode_table(10)
+    p_k, e_k, _ = _knots(m_big, mu, 11.0, float(e0), 0.3, 512)
+    ref = _reference_negative_fraction(p_k, e_k, table_j)
+    got = t_neg.knot_negative_fraction(torch.tensor(p_k), torch.tensor(e_k), table_t)
+    assert 0.0 < ref < 1e-4
+    assert abs(got / ref - 1.0) < TOL
+    e2e = t_neg.negative_fraction(m_big, mu, 11.0, e0, 0.3, table_t, device="cpu")
+    assert abs(e2e / ref - 1.0) < TOL
+
+
+def test_l56_draws_are_the_original():
+    """The original draws (logM, mu, e0) and, after its duration solve,
+    (theta, phi) per draw from one generator."""
+    rng = np.random.default_rng(2601996)
+    ref = []
+    for _ in range(5):
+        m_mass = 10.0 ** rng.uniform(5.0, 6.5)
+        mu = 10.0 ** rng.uniform(0.8, 1.8)
+        e0 = rng.uniform(0.1, 0.7)
+        th, ph = np.arccos(rng.uniform(-1, 1)), rng.uniform(0, 2 * np.pi)
+        ref.append((m_mass, mu, e0, th, ph))
+    assert np.array_equal(t_l56.draw_sources(5), np.asarray(ref))
+
+
+def test_power_by_l_matches_the_original():
+    """On the reference's knots at the first draw (a plunging source), and
+    end to end at its angles and e0 for a source that does not plunge
+    within the 0.1 yr (near a plunge the two dp5 trajectories may stop a
+    knot apart, and the last knot's power moves the sum by ~1 %)."""
+    from tools import convergence_l56 as j_l56
+
+    m_mass, mu, e0, th, ph = t_l56.draw_sources(1)[0]
+    table_j = j_amp.default_mode_table(6, l_max=10)
+    table_t = t_amp.default_mode_table(6, l_max=10)
+    ref = j_l56.power_by_l(m_mass, mu, 10.5, e0, th, ph, 0.1, table_j, max_steps=256)
+    p_k, e_k, k = _knots(m_mass, mu, 10.5, e0, 0.1, 256)
+    pad = np.full(k - len(p_k), 1.0)
+    live = torch.as_tensor(np.arange(k) < len(p_k), dtype=torch.float64)
+    knot = t_l56.knot_power_by_l(torch.from_numpy(np.concatenate([p_k, pad * p_k[-1]])),
+                                 torch.from_numpy(np.concatenate([e_k, pad * e_k[-1]])),
+                                 live, th, ph, table_t)
+    assert sorted(ref) == sorted(knot) == list(range(2, 11))
+    for l_val in ref:
+        assert abs(knot[l_val] / ref[l_val] - 1.0) < TOL, l_val
+
+    ref = j_l56.power_by_l(1e6, 10.0, 10.5, e0, th, ph, 0.1, table_j, max_steps=256)
+    got = t_l56.power_by_l(1e6, 10.0, 10.5, e0, th, ph, 0.1, table_t, device="cpu")
+    for l_val in ref:
+        assert abs(got[l_val] / ref[l_val] - 1.0) < TOL, l_val
+
+
+def test_l56_report_has_the_original_keys():
+    rng = np.random.default_rng(9)
+    powers = [{l: float(v) for l, v in zip(range(2, 11), 10.0 ** (-0.8 * np.arange(9)
+                                                               + rng.normal(0, 0.1, 9)))}
+              for _ in range(5)]
+    lines, report = t_l56.report_of(powers, [1e-4], [1e-6], [1e-8])
+    assert lines[0] == "draws: 5" and lines[1].startswith("l=5,6 power fraction: median ")
+    assert set(report) == {
+        "draws", "l56_power_fraction", "l5_over_l4_ratio_median", "l78_power_fraction",
+        "l910_power_fraction", "geometric_tail_bound_beyond_l10", "fd_mismatch_l4_vs_l6",
+        "fd_mismatch_l6_vs_l8", "fd_mismatch_l8_vs_l10",
+    }
+    tot = sum(powers[0].values())
+    assert report["l56_power_fraction"]["max"] >= (powers[0][5] + powers[0][6]) / tot
