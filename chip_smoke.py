@@ -58,6 +58,14 @@ with the dense pass at runs of 64, 32 and 16 bins, the negative-frequency
 survey's and the multipole-truncation study's per-source physics, the
 calibrators' model sides and one held-out RWZ mode, each on the card
 against the CPU, and the eccentric table re-cleaned from its raw solve).
+From the end of `[scan]` to the kernel records, one more process runs the
+reference's end-to-end run matrix on the paper source at full size
+(`[matrix]`, `matrix_child`: `tools/torch_test_matrix.py`'s rows 1 and 3,
+4 yr on the whole 6.3M-bin grid, 16 walkers, one step, the TD template and
+the FD template against one windowed TD injection, from one duration
+solve beside `[facades]` and `[pe]`, the rows after `[pe]`; the dense
+pass at the new sizes against its plain version; where h5py imports, the
+HDF chain file resumed for one more step).
 Last it times the dense pass on the tables the runs produced, beside its
 plain version, its byte bound, a zero fill of the same output (the practical
 write floor) and the kernel with every slot dead, and each row kernel on
@@ -74,6 +82,7 @@ next-to-last line of output is the kernel record, the last line
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -299,6 +308,41 @@ def bound(cases, groups, r, nf):
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = cases.kept_pairs(groups, r, nf) * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def dense_record(env, groups, r, nf, name, pallas_line, n_launched, reps):
+    """The dense pass on one path's own tables: kernel against plain on the
+    card (`compare`), then the kernel's CUDA-event and profiler times beside
+    its plain version, a zero fill of the same output and its bound. Prints
+    the [kernel] line and returns the kernel record."""
+    torch, fd_dense, cases, card = env["torch"], env["fd_dense"], env["cases"], env["card"]
+    n_b = groups[0].pc.shape[0]
+    err, scale = compare(torch, fd_dense, cases, groups, r, nf, f"{name} real tables")
+    ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf), reps, torch)
+    plain_ms = time_ms(lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r, nf=nf), 2,
+                       torch)
+    buf = fd_dense.output_buffer(n_b, nf, env["dev"])[0]
+    zero_fill_ms = time_ms(buf.zero_, reps, torch)
+    kernel_dev_ms = device_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf), reps,
+                              torch)
+    zero_dev_ms = device_ms(buf.zero_, reps, torch)
+    bound_ms, bound_by = bound(cases, groups, r, nf)
+    print(f"[kernel] {name} on the main path's tables, B={n_b} slots="
+          f"{'+'.join(str(g.pc.shape[1]) for g in groups)} r={r} nf={nf} "
+          f"({cases.kept_pairs(groups, r, nf)} kept bin-slot pairs in "
+          f"{cases.kept_runs(groups, r, nf)} run cells): max|kernel-plain|="
+          f"{err:.3e} (rel {err / scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"zero fill of the same (B, 4, {buf.shape[2]}) output {zero_fill_ms:.4f} ms "
+          f"(practical write floor), bound {bound_ms:.4f} ms by {bound_by} -> "
+          f"{100 * bound_ms / ms:.1f} % of bound; device time per call (profiler): kernel "
+          f"{fmt(kernel_dev_ms)}, zero fill {fmt(zero_dev_ms)}; on {card}", flush=True)
+    return {
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": f"{PALLAS}:{pallas_line}", "launches": n_launched,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "zero_fill_ms": zero_fill_ms,
+        "device_ms": kernel_dev_ms, "tables": name.split("[")[1][:-1] if "[" in name else "flat",
+    }
 
 
 @contextlib.contextmanager
@@ -628,20 +672,46 @@ def drive_pe(env):
     del w_k, w_p
 
     # one 64-walker likelihood call, split by stage; the first input of each
-    # row-kernel call site is kept for the kernel records
+    # row-kernel call site is kept for the kernel records, and the inputs of
+    # its level-1 tables (the main slots)
     timer = StageTimer(torch)
+    level1_in = []
+
+    def level1_keeping(*a, **k):
+        if not level1_in:
+            level1_in.append((a, k))
+        return chunks(*a, **k)
+
+    chunks = summation_fd._level1_walker_chunks
     with patched(wf, "schwarz_ecc_flux_inspiral",
                  timer.wrap("trajectory", wf.schwarz_ecc_flux_inspiral)), \
             patched(wf, "mode_amplitudes", timer.wrap("amplitudes", wf.mode_amplitudes)), \
             patched(summation_fd, "_level1_uniform_tables",
                     timer.wrap("level-1", summation_fd._level1_uniform_tables)), \
             dense_function(summation_fd, timer.wrap("dense", fd_dense.fd_dense_accumulate)), \
+            patched(summation_fd, "_level1_walker_chunks", level1_keeping), \
             at_sites(keep=True):
         t0 = time.perf_counter()
         like(half)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
     rest = call_s - sum(timer.totals.values())
+    # what the level-1 walker chunks cost this call: its main slots' tables
+    # in chunks (as the call ran them) and in one pass, alternated
+    l1_a, l1_k = level1_in[0]
+    n_w, n_s, n_nodes = l1_a[3].shape[0], l1_a[3].shape[1], l1_a[12]
+    step = max(1, summation_fd._LEVEL1_NODES // (n_s * n_nodes))
+    sizes = [min(step, n_w - b) for b in range(0, n_w, step)]
+    check(all(torch.equal(x, y) for x, y in zip(
+        chunks(*l1_a, **l1_k), summation_fd._level1_uniform_tables(*l1_a, **l1_k))),
+        "[pe] level-1 tables in walker chunks equal one pass, to the bit")
+    l1_ms = {"chunks": [], "one pass": []}
+    for _ in range(2):
+        l1_ms["chunks"].append(time_ms(lambda: chunks(*l1_a, **l1_k), 2, torch))
+        l1_ms["one pass"].append(
+            time_ms(lambda: summation_fd._level1_uniform_tables(*l1_a, **l1_k), 2, torch))
+    del level1_in, l1_a, l1_k
+    torch.cuda.empty_cache()
     # the sampling wall holds the walkers' start (one evaluation of the
     # whole ensemble) besides the steps; the step time leaves it out
     step_s = timing["steps_s"] / args.nsteps
@@ -663,6 +733,12 @@ def drive_pe(env):
           f"{timing['evals_per_s']:.2f} posterior evaluations/s "
           f"(nsteps x ntemps x nwalkers / wall, the wall holding the start as in the CLI); "
           f"host clock, synchronized; on {card}", flush=True)
+    print(f"[timing pe] level-1 tables of that call's main slots ({n_w} walkers x {n_s} slots x "
+          f"{n_nodes} nodes): in walker chunks of {' + '.join(map(str, sizes))} (at most "
+          f"{summation_fd._LEVEL1_NODES} nodes, as the call ran them) "
+          f"{' / '.join(f'{t:.1f}' for t in l1_ms['chunks'])} ms, in one pass "
+          f"{' / '.join(f'{t:.1f}' for t in l1_ms['one pass'])} ms (CUDA events, two alternated "
+          f"pairs of 2 calls each); the same tables to the bit; on {card}", flush=True)
     return dict(tables=seen["tables"], tables_1=seen["tables_1"], launches=n_b, launches_1=n_1,
                 args=args, out=out, row_launches=row_launches_sites, row_inputs=row_inputs)
 
@@ -1865,15 +1941,79 @@ def drive_examples(env, beside, timeout_s=600):
     return beside_out
 
 
-# [tools]: the root-level tools' torch twins (tools/torch_*.py,
-# tools/rwz/torch_*.py), in a process of their own beside [moves]
-TOOLS_RUNNER = """
+# [tools] and [matrix] run in processes of their own: the child process
+# calls chip_smoke.<fn>(spec), which prints its lines and marks each of its
+# results with CHILD_RESULT
+CHILD_RUNNER = """
 import json, sys
-root, spec = sys.argv[1], json.loads(sys.argv[2])
+root, fn, spec = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
 sys.path.insert(0, root)
 import chip_smoke
-print(json.dumps(chip_smoke.tools_child(spec)), flush=True)
+getattr(chip_smoke, fn)(spec)
 """
+CHILD_RESULT = "@result "
+
+
+def child_result(obj):
+    """Print one result of a child phase, for `finish_child`."""
+    print(CHILD_RESULT + json.dumps(obj), flush=True)
+
+
+def start_child(fn, spec, env=None):
+    """Start ``chip_smoke.fn(spec)`` in a process of its own, its stdin a
+    pipe: (process, stdout, stderr). A child still running when this
+    script exits is killed."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", CHILD_RUNNER, root, fn, json.dumps(spec)],
+                            cwd=root, stdin=subprocess.PIPE, stdout=out, stderr=err, text=True,
+                            env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, err
+
+
+def tell_child(child, word):
+    """One line to a child's stdin, if it still runs (`finish_child` reports
+    a child that ended early)."""
+    proc = child[0]
+    try:
+        if proc.poll() is None:
+            proc.stdin.write(word + "\n")
+            proc.stdin.flush()
+    except BrokenPipeError:
+        pass
+
+
+def finish_child(child, phase, timeout_s):
+    """Wait for a child phase, relay its lines and return its results in
+    order. Fails unless it exited 0 with a result; a child still running
+    after ``timeout_s`` is killed."""
+    proc, stdout, stderr = child
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout.seek(0)
+    stderr.seek(0)
+    results = []
+    for line in stdout.read().splitlines():
+        if line.startswith(CHILD_RESULT):
+            results.append(json.loads(line[len(CHILD_RESULT):]))
+        else:
+            print(line, flush=True)
+    ok = proc.returncode == 0 and bool(results)
+    if not ok:
+        print(stderr.read()[-4000:], flush=True)
+    check(ok, f"[{phase}] the {phase} process exited {proc.returncode}")
+    return results
+
+
+# [tools]: the root-level tools' torch twins (tools/torch_*.py,
+# tools/rwz/torch_*.py), in a process of their own beside [moves]
 TOOLS_THREADS = 2  # the child's intra-op threads, beside [moves] and [examples]
 TOOLS_RECORD_RUNS = (32, 16)  # the xcheck's bins per run whose launches are kernel records
 # per-knot mode powers, card against CPU on the card's knots: the weak
@@ -1892,8 +2032,8 @@ def tools_child(spec):
     per-node functions on the card, held against the same functions on the
     CPU, the xcheck twin at full width with its dense-pass launches counted
     and its r = 32 / r = 16 tables saved for the kernel records, and the
-    ecc table's re-clean from the raw solve. Prints its lines and returns
-    its numbers; every check raises."""
+    ecc table's re-clean from the raw solve. Prints its lines and its
+    numbers as its result; every check raises."""
     import tempfile
 
     import torch
@@ -2069,48 +2209,29 @@ def tools_child(spec):
         f"{', '.join(f'{a:.2e}' for _, a in devs)} (card = CPU within {TOOLS_HOLDOUT_TOL:g})")
     check(np.isfinite(devs).all(), "[tools] holdout deviations finite")
     out.update(holdout=devs, seconds=time.perf_counter() - t_start)
-    return out
+    child_result(out)
 
 
 def start_tools(env, pe):
-    """Start the [tools] child on the [pe] source: (process, stdout, stderr,
-    the directory its tables go to)."""
+    """Start the [tools] child on the [pe] source: (the child, the directory
+    its tables go to)."""
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
     tables_dir = tempfile.mkdtemp()
     spec = dict(root=root, device=str(env["dev"]), card=env["card"], tables_dir=tables_dir,
                 source=[1e6, 10.0, 0.35, float(pe["out"]["p0"])])
-    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen([sys.executable, "-c", TOOLS_RUNNER, root, json.dumps(spec)],
-                            cwd=root, stdout=out, stderr=err)
-    return proc, out, err, tables_dir
+    return start_child("tools_child", spec), tables_dir
 
 
 def finish_tools(env, child, timeout_s=600):
     """Wait for the [tools] child, relay its lines and load its tables onto
-    the card. A child still running when this returns or raises is
-    killed."""
+    the card."""
     import shutil
 
     torch = env["torch"]
-    proc, stdout, stderr, tables_dir = child
-    try:
-        proc.wait(timeout=timeout_s)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    stdout.seek(0)
-    stderr.seek(0)
-    lines = stdout.read().splitlines()
-    ok = proc.returncode == 0 and bool(lines)
-    for line in lines[:-1] if ok else lines:
-        print(line, flush=True)
-    if not ok:
-        print(stderr.read()[-4000:], flush=True)
-    check(ok, f"[tools] the tools process exited {proc.returncode}")
-    result = json.loads(lines[-1])
+    child, tables_dir = child
+    result = finish_child(child, "tools", timeout_s)[-1]
     saved = torch.load(result["tables_path"])
     shutil.rmtree(tables_dir, ignore_errors=True)
     fd_dense, dev = env["fd_dense"], env["dev"]
@@ -2122,6 +2243,213 @@ def finish_tools(env, child, timeout_s=600):
     print(f"[tools] {result['seconds']:.1f} s in its own process beside [moves] and "
           f"[examples]; on {env['card']}", flush=True)
     return result
+
+
+# [matrix]: tools/test_matrix.sh's paper-source rows (the torch twin,
+# tools/torch_test_matrix.py) at full size, in a process of its own from
+# the end of [scan] to the kernel records: 4 yr, -downsample 0 (6,311,629
+# positive bins, 12.6M samples), 16
+# walkers, one sampler step, the production physics. One duration solve
+# (get_p_at_t, 44 dp5 trajectories) feeds every row, as [mesh] reuses
+# [pe]'s p0. Row 1: TD template, windowed TD injection; row 3: FD template,
+# the same injection
+MATRIX_ROWS = (1, 3)
+MATRIX_THREADS = 2  # the child's intra-op threads, beside [moves], [examples] and [tools]
+MATRIX_LL_TOL = 1e-3  # |log L(truth)| where a template is its own injection (tests/test_torch_pe.py)
+MATRIX_SNR_TOL = 1e-12  # rows 1 and 3: one TD injection, relative
+
+
+def matrix_child(spec):
+    """The [matrix] phase, in its own process: the duration solve of the
+    paper source, then each row of ``spec["rows"]`` through the twin's
+    `run_pe` with that p0, its fd_dense launches counted per batch size and
+    the first tables of each size kept; rows 1 and 3 must read one SNR; the
+    kernel against its plain version on those tables; where h5py imports,
+    row 3's HDF chain file resumed for one more step. Reads one line on
+    stdin between the solve and the rows (the main process's [pe] done) and
+    one before its kernel records (the main process idle); prints its
+    lines, its rows and then its records as results, and exits. Every
+    check raises."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.set_num_threads(MATRIX_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from emri_frequencydomainwaveforms_tpu_torch.inference.backends.hdf import HDFBackend
+    from emri_frequencydomainwaveforms_tpu_torch.inference.backends.memory import Backend
+    from emri_frequencydomainwaveforms_tpu_torch.inference.ensemble import EnsembleSampler
+    from emri_frequencydomainwaveforms_tpu_torch.models import summation_fd
+    from emri_frequencydomainwaveforms_tpu_torch.models.inspiral import flux_model, get_p_at_t
+    from emri_frequencydomainwaveforms_tpu_torch.ops import fd_dense
+    from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
+    from tools import torch_test_matrix as tm
+
+    dev, card = torch.device(spec["device"]), spec["card"]
+    env = dict(torch=torch, dev=dev, card=card, fd_dense=fd_dense, cases=cases)
+    t_start = time.perf_counter()
+
+    def say(text):
+        print(f"[matrix] {text}; on {card}", flush=True)
+
+    rows = tm.row_flags()
+    first = tm.pe_args(rows[spec["rows"][0] - 1][1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = flux_model(first.flux, dev)
+    p0 = float(get_p_at_t(first.M, first.mu, first.e0, 0.99 * first.Tobs, flux=first.flux,
+                          flux_grid=grid, device=dev)[0])
+    solve_s = time.perf_counter() - t0
+    say(f"duration solve of the paper source (M {first.M}, mu {first.mu}, e0 {first.e0}, "
+        f"{first.Tobs} yr, flux {first.flux}): p0 {p0:.9f} in {solve_s:.1f} s, for every row")
+    # the rows' heavy batches wait for the end of [pe], whose times are printed
+    t0 = time.perf_counter()
+    check(sys.stdin.readline() == "rows\n", "[matrix] the main process ended before [pe] did")
+    say(f"rows released after [pe] ({time.perf_counter() - t0:.1f} s after the solve)")
+    h5 = tm.have_h5py()
+    if not h5:
+        say("chain backend: memory (h5py absent)")
+    outdir = tempfile.mkdtemp(prefix="matrix_") if h5 else None
+    # per (B, nf): the first tables and the row that launched them, and
+    # the launches of each row
+    kept, counts, out_rows = {}, {}, {}
+
+    def keep_first(groups, *, r, nf):
+        key = (groups[0].pc.shape[0], nf)
+        kept.setdefault(key, (groups, r, row_now))
+        counts.setdefault(key, {})
+        counts[key][row_now] = counts[key].get(row_now, 0) + 1
+        return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
+
+    try:
+        for i in spec["rows"]:
+            row_now, argv = i, rows[i - 1][1]
+            fd_dense.fd_dense_accumulate.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            hdf = h5 and i == 3
+            with dense_function(summation_fd, keep_first):
+                out = tm.run_pe(argv, dev, outdir if hdf else None,
+                                None if hdf else Backend(), p0=p0)
+            torch.cuda.synchronize()
+            launches = fd_dense.fd_dense_accumulate.launches
+            by_batch = {key[0]: n[i] for key, n in sorted(counts.items()) if i in n}
+            check(sum(by_batch.values()) == launches,
+                  f"[matrix] row {i}: every fd_dense launch came through the path ({by_batch}, "
+                  f"{launches})")
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            ll = out["backend"].get_log_like()
+            args = tm.pe_args(argv)
+            say(f"row {i} ({' '.join(argv)}): p0 {out['p0']:.9f}, {out['n_knots']} knots, nf "
+                f"{out['nf']}, injection SNR {out['snr']:.6f}, log L at the truth "
+                f"{out['ll_truth']:.6e}, stored log L {float(ll.min()):.6e} .. "
+                f"{float(ll.max()):.6e}, {launches} fd_dense launches ("
+                f"{', '.join(f'B = {b}: {n}' for b, n in by_batch.items()) or 'none'}), "
+                f"{'HDF chain file' if hdf else 'in-memory chain'}; {out['seconds']:.1f} s "
+                f"({tm.stages(out)}), peak device memory {peak:.2f} GB")
+            check(out["p0"] == p0, f"[matrix] row {i} p0 from the shared solve")
+            check(bool(np.isfinite(out["chain"]).all() and np.isfinite(ll).all()
+                       and np.isfinite(out["ll_truth"])), f"[matrix] row {i} chain and log L finite")
+            if args.injectFD:
+                check(abs(out["ll_truth"]) < MATRIX_LL_TOL,
+                      f"[matrix] row {i} |log L(truth)| {abs(out['ll_truth']):.3e}")
+            n_b = args.nwalkers * args.ntemps
+            if args.template == "fd":
+                check(launches > 0 and (n_b, out["nf"]) in kept,
+                      f"[matrix] row {i}: the batched fd_dense kernel ran ({launches} launches)")
+            else:
+                check(launches == 0, f"[matrix] row {i}: the TD template launches no fd_dense")
+            out_rows[i] = dict(snr=out["snr"], ll_truth=out["ll_truth"], seconds=out["seconds"],
+                               peak_gb=peak, launches=launches, nf=out["nf"], batch=n_b,
+                               launches_by_batch={str(b): n for b, n in by_batch.items()},
+                               downsample=args.downsample, ll_step1=ll[0].copy())
+            del out
+        if 1 in out_rows and 3 in out_rows:
+            a, b = out_rows[1]["snr"], out_rows[3]["snr"]
+            check(abs(a / b - 1.0) <= MATRIX_SNR_TOL,
+                  f"[matrix] rows 1 and 3 share one TD injection: SNR {a:.12f} / {b:.12f}")
+            say(f"rows 1 and 3 read one injection SNR: {a:.12f} / {b:.12f}")
+
+        # the kernel at the new sizes against its plain version
+        for (n_b, nf), (groups, r, _) in sorted(kept.items()):
+            err, scale = compare(torch, fd_dense, cases, groups, r, nf,
+                                 f"[matrix] fd_dense B={n_b} nf={nf}")
+            say(f"fd_dense B = {n_b}, r = {r}, {groups[0].pc.shape[1]} slots of "
+                f"{groups[0].pc.shape[2]} runs, nf {nf}: kernel vs plain max|diff| {err:.3e} "
+                f"(rel {err / scale:.3e} <= 1e-5)")
+
+        if h5 and 3 in out_rows:
+            # the CLI's resume branch on row 3's chain file, one more step
+            path = os.path.join(outdir, os.path.basename(tm.pe_args(rows[2][1]).outname))
+            before = HDFBackend(path)
+            last = before.get_last_sample()
+            check(before.iteration == 1, f"[matrix] row 3 chain file at iteration {before.iteration}")
+            seen = []
+            coerce = EnsembleSampler._coerce_state
+
+            def recording(self, s):
+                st = coerce(self, s)
+                seen.append(st)
+                return st
+
+            with patched(EnsembleSampler, "_coerce_state", recording):
+                resumed = tm.run_pe(rows[2][1], dev, outdir, None, p0=p0)
+            after = HDFBackend(path)
+            st = seen[0]
+            same_start = (torch.equal(st.branches["emri"].coords, last.branches["emri"].coords)
+                          and torch.equal(st.log_like, last.log_like)
+                          and st.random_state == last.random_state)
+            ll_file = after.get_log_like()
+            same_step1 = bool(np.array_equal(ll_file[0], out_rows[3]["ll_step1"]))
+            say(f"resume of row 3's HDF chain file for one more step: iteration "
+                f"{before.iteration} -> {after.iteration}, resumed from the file's last sample "
+                f"{same_start}, the file's first-step log L equal to the uninterrupted run's "
+                f"{same_step1}, new step's log L finite {bool(np.isfinite(ll_file[1]).all())}; "
+                f"{resumed['seconds']:.1f} s")
+            check(after.iteration == 2 and same_start and same_step1
+                  and bool(np.isfinite(ll_file[1]).all()), "[matrix] HDF resume")
+            del resumed
+    finally:
+        if outdir is not None:
+            shutil.rmtree(outdir, ignore_errors=True)
+    seconds = time.perf_counter() - t_start
+    say(f"{seconds:.1f} s in its own process")
+    child_result(dict(rows={str(k): {n: v for n, v in r.items() if n != "ll_step1"}
+                            for k, r in out_rows.items()},
+                      p0=p0, solve_s=solve_s, seconds=seconds))
+
+    # the kernel records, timed once the main process waits on this one
+    check(sys.stdin.readline() == "records\n", "[matrix] the main process ended")
+    # each size named by the row that launched its tables, with the
+    # launches at that size over the phase's rows
+    records = []
+    for (n_b, nf), (groups, r, i) in sorted(kept.items()):
+        ds = out_rows[i]["downsample"]
+        name = (f"fd_dense_accumulate_batched[matrix-ds{ds}-B{n_b}]" if n_b > 1
+                else f"fd_dense_accumulate[matrix-ds{ds}]")
+        n_launched = sum(counts[(n_b, nf)].values())
+        rec = dense_record(env, groups, r, nf, name, 203 if n_b > 1 else 99, n_launched, 10)
+        rec["batch"] = n_b
+        records.append(rec)
+    child_result(records)
+
+
+def start_matrix(env):
+    """Start the [matrix] child."""
+    spec = dict(device=str(env["dev"]), card=env["card"], rows=list(MATRIX_ROWS))
+    # its row batches share the card with the later phases: expandable
+    # segments keep its cache from fragmenting between the two rows
+    return start_child("matrix_child", spec,
+                       dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+
+
+def finish_matrix(child, timeout_s=1200):
+    """Let the [matrix] child time its kernel records (this process idle),
+    wait for it and relay its lines. Returns its result with the records."""
+    tell_child(child, "records")
+    results = finish_child(child, "matrix", timeout_s)
+    check(len(results) == 2, f"[matrix] {len(results)} results, not the rows and the records")
+    return dict(results[0], records=results[1])
 
 
 def drive_mesh(env, grid):
@@ -2566,6 +2894,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_done("scan")
+    # ---- the run matrix's paper-source rows at full size, in a process of
+    # its own from here to the kernel records: its duration solve beside
+    # [facades] and [pe], its rows after [pe] ----
+    matrix_child = start_matrix(env)
     # ---- the reference-signature facades ----
     drive_facades(env)
 
@@ -2575,8 +2907,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase_done("pe")
+    tell_child(matrix_child, "rows")
     # ---- the Fisher set on the PE template, relative binning, the sampler diagnostics ----
     fisher = drive_fisher(env, pe)
+    # from here on [matrix]'s rows share the card: each phase returns its cache
+    torch.cuda.empty_cache()
     phase_done("fisher")
     drive_relbin(env)
     phase_done("relbin")
@@ -2586,6 +2921,7 @@ def main() -> None:
     # with the port's examples beside it, each in a process of its own
     def moves_phase():
         out = drive_moves(env, pe, fisher)
+        torch.cuda.empty_cache()
         phase_done("moves")
         return out
 
@@ -2595,6 +2931,7 @@ def main() -> None:
     tools = finish_tools(env, tools_child)
     phase_done("tools")
     rj = drive_rj(env, pe, moves)
+    torch.cuda.empty_cache()
     phase_done("rj")
     # ---- walker and frequency sharding on torch.distributed, the dry run ----
     mesh = drive_mesh(env, grid)
@@ -2608,6 +2945,8 @@ def main() -> None:
     truth = drive_truth(env)
     torch.cuda.empty_cache()
     phase_done("truth")
+    matrix = finish_matrix(matrix_child)
+    phase_done("matrix (waited for, and its kernel records)")
     # ---- phase 8: the kernel on the main paths' own tables ----
     records = []
     for (groups, r, nf_t), name, pallas_line, n_launched, reps in (
@@ -2630,39 +2969,13 @@ def main() -> None:
         *((tools["tables"][f"r{r}"], f"fd_dense_accumulate[tools-r{r}]", 99,
            tools["launches"][f"r{r}"], 100) for r in TOOLS_RECORD_RUNS),
     ):
-        n_b = groups[0].pc.shape[0]
-        err, scale = compare(torch, fd_dense, cases, groups, r, nf_t, f"{name} real tables")
-        ms = time_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf_t), reps, torch)
-        plain_ms = time_ms(
-            lambda: fd_dense.fd_dense_accumulate_reference(groups, r=r, nf=nf_t), 2, torch)
-        buf = fd_dense.output_buffer(n_b, nf_t, dev)[0]
-        zero_fill_ms = time_ms(buf.zero_, reps, torch)
-        kernel_dev_ms = device_ms(lambda: fd_dense.fd_dense_accumulate(groups, r=r, nf=nf_t), reps,
-                                  torch)
-        zero_dev_ms = device_ms(buf.zero_, reps, torch)
-        bound_ms, bound_by = bound(cases, groups, r, nf_t)
-        print(f"[kernel] {name} on the main path's tables, B={n_b} slots="
-              f"{'+'.join(str(g.pc.shape[1]) for g in groups)} r={r} nf={nf_t} "
-              f"({cases.kept_pairs(groups, r, nf_t)} kept bin-slot pairs in "
-              f"{cases.kept_runs(groups, r, nf_t)} run cells): max|kernel-plain|="
-              f"{err:.3e} (rel {err / scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"zero fill of the same (B, 4, {buf.shape[2]}) output {zero_fill_ms:.4f} ms "
-              f"(practical write floor), bound {bound_ms:.4f} ms by {bound_by} -> "
-              f"{100 * bound_ms / ms:.1f} % of bound; device time per call (profiler): kernel "
-              f"{fmt(kernel_dev_ms)}, zero fill {fmt(zero_dev_ms)}; on {card}", flush=True)
-        records.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{PALLAS}:{pallas_line}", "launches": n_launched,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "zero_fill_ms": zero_fill_ms,
-            "device_ms": kernel_dev_ms, "tables": name.split("[")[1][:-1] if "[" in name else "flat",
-        })
-        if n_b == BATCH:
+        records.append(dense_record(env, groups, r, nf_t, name, pallas_line, n_launched, reps))
+        if groups[0].pc.shape[0] == BATCH:
             records[-1]["skeleton_ms"] = skeleton_ms
         if name.endswith("[mesh]"):
             records[-1]["launches_per_rank"] = mesh["per_rank"]
-        del buf
         torch.cuda.empty_cache()
+    records += matrix["records"]
     records += row_records(torch, card, pe)
 
     phase_done("kernel records")

@@ -165,7 +165,9 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
     ``HDFBackend(outname)``. Returns the cold and hot chains, the truth, the
     injection SNR, the backend, the sampler, the likelihood, the solved p0,
     what rebuilds the template (`fd_template`'s table, forced slots, grid
-    and flux grid) and the host-clock times of the stages (seconds).
+    and flux grid), the injection trajectory's knot count (``n_knots``;
+    None without the frozen selection) and the host-clock times of the
+    stages (seconds).
     """
     from ..inference.ensemble import EnsembleSampler
     from ..inference.prior import ProbDistContainer, uniform_dist
@@ -217,8 +219,9 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         forced = pro_inj.sel.idx[0].cpu().numpy()
         table_t = table.take(forced)
         idx_t = np.arange(len(forced))
+        n_knots = int(pro_inj.n_live[0])
     else:
-        table_t, idx_t = table, None
+        table_t, idx_t, n_knots = table, None, None
 
     transform = parameter_transform()
 
@@ -372,6 +375,7 @@ def run_emri_pe(args, *, backend=None, device=None) -> dict:
         "noise_fn": noise_fn,
         "start": start,
         "p0": p0,
+        "n_knots": n_knots,
         "timing": timing,
     }
 

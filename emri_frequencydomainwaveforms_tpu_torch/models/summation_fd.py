@@ -508,7 +508,7 @@ def fd_mode_sum_uniform(
     # the exact integer-cycle phase needs the bins on a power-of-two lattice
     cyc = (r & (r - 1)) == 0
 
-    tables = _level1_uniform_tables(
+    tables = _level1_walker_chunks(
         cphi_all, inp.ar_c, inp.ai_c, f_knots_all, g0_main, inp.inc_lo, inp.inc_hi,
         ones(k_max), t_knots, f0, df, r, g_band + 1, run_df, cycle_split=cyc,
     )
@@ -527,7 +527,7 @@ def fd_mode_sum_uniform(
             )[..., 0]
             g0_x = _to_int32(torch.floor((f_start_x - f0) / run_df))
         g0_x = g0_x.clamp(0, g_total)
-        tables_x = _level1_uniform_tables(
+        tables_x = _level1_walker_chunks(
             ex[0], ex[1], ex[2], ex[3], g0_x, ex[4], ex[5], ex[6],
             t_knots, f0, df, r, g_band_x + 1, run_df, cycle_split=cyc,
         )
@@ -604,6 +604,32 @@ def _polar_envelope(e_re: torch.Tensor, e_im: torch.Tensor, anchor=None):
         torch.zeros_like(raw_a),
     )
     return sign * e_abs, phs - c
+
+
+# level-1 nodes (walkers x slots x window nodes) evaluated in one pass: its
+# float64 intermediates take ~0.7 kB a node, so a larger batch is evaluated
+# in walker chunks of at most this many nodes (a 16-walker batch of 48
+# whole-grid slots on the 4-yr, 6.3M-bin grid: 75.7M nodes, 52 GB at once)
+_LEVEL1_NODES = 1 << 25
+
+
+def _level1_walker_chunks(cphi_all, ar_all, ai_all, f_knots_all, g0_all, k_lo, k_hi, dirn,
+                          t_knots, f0, df, r, n_nodes, run_df, cycle_split=False):
+    """`_level1_uniform_tables` in chunks of walkers of at most
+    `_LEVEL1_NODES` nodes, concatenated: every node's arithmetic runs per
+    walker and slot (the envelope's running sum per row, `row_cumsum`), so
+    the tables are those of one pass, to the bit."""
+    n_b, n_s = f_knots_all.shape[:2]
+    step = max(1, _LEVEL1_NODES // (n_s * n_nodes))
+    parts = [
+        _level1_uniform_tables(*(x[b:b + step] for x in (cphi_all, ar_all, ai_all, f_knots_all,
+                                                         g0_all, k_lo, k_hi, dirn, t_knots)),
+                               f0, df, r, n_nodes, run_df, cycle_split=cycle_split)
+        for b in range(0, n_b, step)
+    ]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(col, dim=0) for col in zip(*parts))
 
 
 def _level1_uniform_tables(

@@ -27,6 +27,7 @@ TWINS = [
     "tools.rwz.torch_holdout_check",
     "tools.rwz.torch_ecc_flux_check",
     "tools.rwz.torch_pn_ecc_flux",
+    "tools.torch_test_matrix",
 ]
 SOLVER = [f"tools.rwz.{m}" for m in
           ("solver", "circular", "eccentric", "gr", "derive_even", "derive_odd",

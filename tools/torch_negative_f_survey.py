@@ -19,11 +19,20 @@ draws at once; each lane's p0 does not depend on its batch).
 Run on the current CUDA device, or on the CPU with ``--device cpu``:
 
     python -m tools.torch_negative_f_survey [--draws 32] [--device cpu]
+
+``--per-draw`` prints each draw's p0, knot count and fraction; ``--save
+FILE.npz`` keeps them with each draw's knots, and ``--knots FILE.npz``
+evaluates the fraction again on the knots such a file holds (a run on
+another device, or `tools/negative_f_draws.py`'s JAX run), so the two
+devices' trajectories and their physics can be told apart; there it also
+sums the amplitudes' float32 projections in float64
+(`float64_products`), a yardstick for the float32 sums' order.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 
@@ -63,15 +72,21 @@ def solve_p0(sources: np.ndarray, tobs: float, device) -> np.ndarray:
     return p0.cpu().numpy()
 
 
-def negative_fraction(m_big, mu, p0, e0, tobs, table, rwz=True, device=None):
-    """The negative-frequency share of one source's dt-weighted mode power
-    along its ``tobs``-yr inspiral (`knot_negative_fraction` on its knots)."""
+def source_knots(m_big, mu, p0, e0, tobs, device=None):
+    """The live knots (p, e) of one source's ``tobs``-yr inspiral, (K,)
+    float64 tensors on ``device``."""
     from emri_frequencydomainwaveforms_tpu_torch.models.inspiral import schwarz_ecc_flux_inspiral
 
     traj = schwarz_ecc_flux_inspiral(m_big, mu, p0, float(e0), t_years=tobs, max_steps=512,
                                      device=device)
     n = int(traj.n[0])
-    return knot_negative_fraction(traj.p[0, :n], traj.e[0, :n], table, rwz)
+    return traj.p[0, :n], traj.e[0, :n]
+
+
+def negative_fraction(m_big, mu, p0, e0, tobs, table, rwz=True, device=None):
+    """The negative-frequency share of one source's dt-weighted mode power
+    along its ``tobs``-yr inspiral (`knot_negative_fraction` on its knots)."""
+    return knot_negative_fraction(*source_knots(m_big, mu, p0, e0, tobs, device), table, rwz)
 
 
 def knot_negative_fraction(p_k, e_k, table, rwz=True):
@@ -101,6 +116,24 @@ def knot_negative_fraction(p_k, e_k, table, rwz=True):
     return float(np.sum(pw_tot[neg]) / np.sum(pw_tot))
 
 
+@contextlib.contextmanager
+def float64_products():
+    """The amplitudes' projections (`models.amplitude._products`) summed in
+    float64 for the duration, their inputs and outputs still float32: a
+    yardstick for the float32 products' accumulation order, which carries
+    the weak (negative-frequency) harmonics' power."""
+    import torch
+
+    from emri_frequencydomainwaveforms_tpu_torch.models import amplitude
+
+    products = amplitude._products
+    amplitude._products = lambda a, w: torch.matmul(a.double(), w.double()).float()
+    try:
+        yield
+    finally:
+        amplitude._products = products
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--draws", type=int, default=32)
@@ -110,7 +143,16 @@ def main(argv=None):
     ap.add_argument("--rwz", action="store_true", default=True)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
+    ap.add_argument("--per-draw", action="store_true",
+                    help="print each draw's p0, knot count and fraction")
+    ap.add_argument("--save", default=None,
+                    help="npz file for the draws, p0, knots and fractions")
+    ap.add_argument("--knots", default=None,
+                    help="npz file (--save's layout) whose knots are evaluated again here "
+                         "(implies --per-draw)")
     args = ap.parse_args(argv)
+
+    import torch
 
     from emri_frequencydomainwaveforms_tpu_torch.models.amplitude import default_mode_table
     from emri_frequencydomainwaveforms_tpu_torch.utils.device import resolve_device
@@ -120,14 +162,45 @@ def main(argv=None):
     sources = draw_sources(args.draws, args.seed)
     p0s = solve_p0(sources, args.tobs, device)
 
-    fracs, worst = [], None
-    for (m_big, mu, e0), p0 in zip(sources, p0s):
+    carried = np.load(args.knots) if args.knots else None
+    fracs, worst, n_knots, knots, kept = [], None, [], [], []
+    for i, ((m_big, mu, e0), p0) in enumerate(zip(sources, p0s)):
         if not np.isfinite(p0):
             continue
-        frac = negative_fraction(m_big, mu, float(p0), e0, args.tobs, table, args.rwz, device)
+        p_k, e_k = source_knots(m_big, mu, float(p0), e0, args.tobs, device)
+        frac = knot_negative_fraction(p_k, e_k, table, args.rwz)
         fracs.append(frac)
+        n_knots.append(len(p_k))
+        knots.append((p_k.cpu().numpy(), e_k.cpu().numpy()))
+        kept.append(i)
         if worst is None or frac > worst[0]:
             worst = (frac, m_big, mu, float(p0), float(e0))
+        if args.per_draw or carried is not None:
+            line = (f"draw {i}: M={m_big:.6e} mu={mu:.4f} e0={e0:.6f} p0={p0:.12f} "
+                    f"knots={len(p_k)} frac={frac:.6e}")
+            if carried is not None:
+                j = list(carried["draw"]).index(i)
+                n_c = int(carried["n_knots"][j])
+                p_c, e_c = (torch.as_tensor(carried[k][j, :n_c], device=device)
+                            for k in ("p_knots", "e_knots"))
+                frac_c = knot_negative_fraction(p_c, e_c, table, args.rwz)
+                with float64_products():
+                    frac_64 = knot_negative_fraction(p_c, e_c, table, args.rwz)
+                ref = float(carried["fracs"][j])
+                line += (f" | carried: p0={float(carried['p0'][i]):.12f} knots={n_c} "
+                         f"frac={ref:.6e}, here on its knots {frac_c:.6e} "
+                         f"(rel {abs(frac_c / ref - 1.0):.2e}), with float64 products "
+                         f"{frac_64:.6e} (carried rel {abs(ref / frac_64 - 1.0):.2e}, here "
+                         f"{abs(frac_c / frac_64 - 1.0):.2e})")
+            print(line, flush=True)
+    if args.save:
+        pad = max(n_knots)
+        p_knots, e_knots = (np.full((len(knots), pad), np.nan) for _ in range(2))
+        for i, (p_k, e_k) in enumerate(knots):
+            p_knots[i, : len(p_k)], e_knots[i, : len(e_k)] = p_k, e_k
+        np.savez(args.save, sources=sources, p0=p0s, draw=np.asarray(kept),
+                 n_knots=np.asarray(n_knots),
+                 fracs=np.asarray(fracs), p_knots=p_knots, e_knots=e_knots)
 
     fracs = np.asarray(fracs)
     print(
@@ -143,7 +216,7 @@ def main(argv=None):
         "gate context: FD/TD mismatch budget 1e-4; a negative-f power "
         "fraction f contributes O(f) mismatch if dropped."
     )
-    return dict(fracs=fracs, p0=p0s, worst=worst)
+    return dict(fracs=fracs, p0=p0s, worst=worst, n_knots=n_knots)
 
 
 if __name__ == "__main__":
