@@ -1,0 +1,8 @@
+"""Milliseconds of the dp5 trajectory (the call waveform_prologue makes) per
+likelihood call or per batch (synchronized spans)."""
+
+from benchmark.lib import readers
+
+
+def read(run):
+    return readers.ms_per_call(run, "trajectory_dp5")
