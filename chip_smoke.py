@@ -7,8 +7,10 @@ checks the dense pass against its plain PyTorch version on the card at the
 main path's shapes and on small adversarial layouts, then drives the port's main path
 at full width: a 128-walker batch of all-mode FD waveforms of a 1-yr source
 at dt = 10 s (1,577,907 positive bins), eps = 1e-2 selection frozen to 16
-slots, 256-run windows of 64 bins and 2 turnover slots, and the same module
-once at B = 1 (the unbatched TPU kernel's path). It does so twice: with the
+slots, 256-run windows of 64 bins and 2 turnover slots, the same module
+once at B = 1 (the unbatched TPU kernel's path) and the batch once more with
+the program's tracer on (equal to the bit, its counters held against the
+kernel's count and the trajectory's knots). It does so twice: with the
 flat physics (Peters-Mathews flux, plain multipole amplitudes) and with the
 production physics (``flux="multipole_rwz"``, tail + factorized + rwz
 amplitudes), whose flux grid it first builds on the card. On the production
@@ -21,7 +23,8 @@ parameter-estimation path users run, `cli/emri_pe.py`'s `run_emri_pe` at
 the production settings (1 yr, dt 10 s, downsample 100, rwz physics, kmax 48
 frozen, 32 walkers x 4 temperatures, 3 sampler steps) with the in-memory
 chain backend, and checks the zero residual at the injection, the stored
-chain and one whitened walker batch against the plain dense pass. Between
+chain, one whitened walker batch against the plain dense pass and one
+likelihood call with the program's tracer on against it off. Between
 the two it drives the production batch again through the parallel-in-time
 quadrature trajectory (``traj_method="quad"``: checks, the trajectory issued
 with no host sync and equal to the CPU's, quad against dp5, and both
@@ -391,6 +394,7 @@ def drive_path(label, phys, env):
     torch, dev, card = env["torch"], env["dev"], env["card"]
     wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
     table, batch, nf, f0u, dfu = env["table"], env["batch"], env["nf"], env["f0u"], env["dfu"]
+    from emri_frequencydomainwaveforms_tpu_torch.utils import tracing
     amp_kw = {k: v for k, v in phys.items() if k != "flux"}
     flux = phys.get("flux", "pm")
     # no device named: the entry points run on the current CUDA device
@@ -422,6 +426,20 @@ def drive_path(label, phys, env):
     launches = fd_dense.fd_dense_accumulate.launches
     check(launches > 0, f"{label}: the main path launched the fd_dense kernel")
     check(all(o.shape == (BATCH, nf) and o.dtype == torch.float32 for o in out), "output shapes")
+    # the same batch with the program's tracer on: the same outputs to the
+    # bit, and every launch counted on a span
+    tracing.reset()
+    fd_dense.fd_dense_accumulate.launches = 0
+    with tracing.enabled():
+        out_on = gen(*batch)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, out_on)),
+          f"{label}: the batch with tracing on equals it off, to the bit")
+    by_span = sum(r.counters.get("fd_dense.launches", 0) for r in tracing.records())
+    check(by_span == fd_dense.fd_dense_accumulate.launches == launches,
+          f"{label}: fd_dense launches by span {by_span} = the kernel's count "
+          f"{fd_dense.fd_dense_accumulate.launches} = {launches}")
+    del out_on
     check(all(bool(torch.isfinite(o).all()) for o in out), f"{label}: all outputs finite")
     hp_abs = torch.hypot(out[0], out[1])
     nonzero = int((hp_abs > 0).sum(dim=1).min())
@@ -463,13 +481,20 @@ def drive_path(label, phys, env):
     stage = {}
     grid = gen.flux_grid()
     torch.cuda.synchronize()
+    tracing.reset()
     t0 = time.perf_counter()
-    traj = env["inspiral"].schwarz_ecc_flux_inspiral(
-        1e6, 10.0, batch[0], batch[1], t_years=T_YEARS, max_steps=MAX_STEPS, flux=flux,
-        flux_grid=grid)
+    with tracing.enabled():
+        traj = env["inspiral"].schwarz_ecc_flux_inspiral(
+            1e6, 10.0, batch[0], batch[1], t_years=T_YEARS, max_steps=MAX_STEPS, flux=flux,
+            flux_grid=grid)
     torch.cuda.synchronize()
     stage["trajectory"] = time.perf_counter() - t0
     max_knots = int(traj.n.max())
+    dp5 = tracing.totals()
+    check(dp5["dp5.accepted"] == int(traj.n.sum()) - BATCH
+          and dp5["dp5.accepted"] + dp5["dp5.rejected"] <= dp5["dp5.lane_slots"]
+          == BATCH * dp5["dp5.trips"],
+          f"{label}: dp5 counters {dp5} hold against the knots (sum n {int(traj.n.sum())})")
     rows = (gen.rwz_b_rows, gen.rwz_r_rows) if gen.rwz else None
     t0 = time.perf_counter()
     env["amplitude"].mode_amplitudes(traj.p, traj.e, table_k, family_c=gen.family_c,
@@ -508,7 +533,10 @@ def drive_path(label, phys, env):
           f"fd_dense launches={launches}, min nonzero bins/lane={nonzero}, peak |h+~|={peak:.4e}, "
           f"max_knots={max_knots}, lane0 vs plain-dense twin rel L2={rel:.3e}, "
           f"lane0 vs CPU port rel L2={rel_cpu:.3e}; B=1 run: fd_dense launches={launches_1}, "
-          f"vs plain-dense twin rel L2={rel_1:.3e}", flush=True)
+          f"vs plain-dense twin rel L2={rel_1:.3e}; tracing on: the batch equal to the bit, "
+          f"fd_dense launches by span = the kernel's count; the trajectory's dp5 trips "
+          f"{dp5['dp5.trips']}, accepted {dp5['dp5.accepted']} (= sum n - B), rejected "
+          f"{dp5['dp5.rejected']}, of {dp5['dp5.lane_slots']} lane slots", flush=True)
     print(f"[timing {label}] {BATCH / per_batch:.2f} waveforms/s ({per_batch * 1e3:.1f} ms per "
           f"{BATCH}-walker batch, host clock, synchronized); stages (ms): "
           + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in stage.items())
@@ -522,24 +550,6 @@ def mismatch(a, b) -> float:
     """1 - |<a, b>| / sqrt(<a, a><b, b>) of two complex numpy vectors."""
     num = np.abs(np.vdot(a, b))
     return float(1.0 - num / np.sqrt(np.vdot(a, a).real * np.vdot(b, b).real))
-
-
-class StageTimer:
-    """Wraps functions so each call adds its synchronized host time to a
-    named total (the stage split of one likelihood call)."""
-
-    def __init__(self, torch):
-        self.torch, self.totals = torch, {}
-
-    def wrap(self, name, fn):
-        def run(*a, **k):
-            self.torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out = fn(*a, **k)
-            self.torch.cuda.synchronize()
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t1
-            return out
-        return run
 
 
 def band_edge_mask(wf, pro, tbl, f_at, dfu, edge_runs=2.0, bins_per_run=BINS_PER_RUN):
@@ -580,7 +590,9 @@ def drive_pe(env):
     Counts the dense-pass launches of the whole run (duration solve,
     injection, the walkers' start, 3 sampler steps) and keeps the tables of
     its first B = 1 call (the injection) and its first batched call (a
-    stretch half-step). Returns them with the launch counts.
+    stretch half-step). The row kernels' launches by call site and the
+    stage split of one likelihood call are the program's own counters and
+    spans (`utils.tracing`). Returns the tables with the launch counts.
     """
     torch, dev, card = env["torch"], env["dev"], env["card"]
     wf, fd_dense, summation_fd = env["wf"], env["fd_dense"], env["summation_fd"]
@@ -589,30 +601,28 @@ def drive_pe(env):
     from emri_frequencydomainwaveforms_tpu_torch.lisa import likelihood as lisa_likelihood
     from emri_frequencydomainwaveforms_tpu_torch.models import amplitude, geodesic
     from emri_frequencydomainwaveforms_tpu_torch.ops import row_ops
+    from emri_frequencydomainwaveforms_tpu_torch.utils import tracing
 
     args = emri_pe.build_parser().parse_args(PE_ARGS.split())
     seen = {}
     row_kernels = (row_ops.row_sum, row_ops.row_cumsum)
-    # each row kernel's call sites on the PE path: (module, name, site)
-    row_sites = ((geodesic, "row_sum", "row_sum[rhs]"),
-                 (amplitude, "row_sum", "row_sum[amplitudes]"),
-                 (lisa_likelihood, "row_sum", "row_sum[likelihood]"),
-                 (summation_fd, "row_cumsum", "row_cumsum[level-1]"))
-    site_launches = {site: 0 for _, _, site in row_sites}
+    # each row kernel's call sites on the PE path: (module, name, site, the
+    # program's spans around it; the geodesic's sums run in the trajectory's
+    # RHS and in the mode selection's frequencies)
+    row_sites = ((geodesic, "row_sum", "row_sum[rhs]", ("trajectory.dp5", "selection")),
+                 (amplitude, "row_sum", "row_sum[amplitudes]", ("amplitudes",)),
+                 (lisa_likelihood, "row_sum", "row_sum[likelihood]", ("likelihood.power",)),
+                 (summation_fd, "row_cumsum", "row_cumsum[level-1]", ("core.level1",)))
     row_inputs = {}
 
-    def at_sites(keep):
-        """Patch every call site: count the launches each call adds to its
-        kernel's count, and with ``keep`` keep the site's first inputs."""
+    def at_sites():
+        """Patch every call site to keep its first inputs."""
         stack = contextlib.ExitStack()
-        for module, name, site in row_sites:
+        for module, name, site, _ in row_sites:
             def run(*a, _fn=getattr(module, name), _site=site, **k):
-                if keep and _site not in row_inputs:
+                if _site not in row_inputs:
                     row_inputs[_site] = (_fn, tuple(t.clone() for t in a), dict(k))
-                before = _fn.launches
-                out = _fn(*a, **k)
-                site_launches[_site] += _fn.launches - before
-                return out
+                return _fn(*a, **k)
             stack.enter_context(patched(module, name, run))
         return stack
 
@@ -626,15 +636,27 @@ def drive_pe(env):
     fd_dense.fd_dense_accumulate.launches = 0
     for fn in row_kernels:
         fn.launches = 0
-    with dense_function(summation_fd, keep_first), at_sites(keep=False):
+    tracing.reset()
+    with dense_function(summation_fd, keep_first), tracing.enabled():
         out = emri_pe.run_emri_pe(args, backend=Backend())
     torch.cuda.synchronize()
     launches = fd_dense.fd_dense_accumulate.launches
     row_launches = {fn.__name__: fn.launches for fn in row_kernels}
-    row_launches_sites = dict(site_launches)
-    check(all(sum(v for k, v in row_launches_sites.items() if k.startswith(name + "[")) == n
+    # each launch the program counted, by kernel and innermost span
+    by_span = {}
+    for rec in tracing.records():
+        for key, n in rec.counters.items():
+            if key.endswith(".launches"):
+                site = f"{key[:-len('.launches')]}[{rec.name}]"
+                by_span[site] = by_span.get(site, 0) + n
+    row_launches_sites = {site: sum(by_span.get(f"{name}[{span}]", 0) for span in spans)
+                          for _, name, site, spans in row_sites}
+    declared = {f"{name}[{span}]" for _, name, _, spans in row_sites for span in spans}
+    row_keys = {k for k in by_span if k.split("[")[0] in row_launches}
+    check(row_keys <= declared and all(
+              sum(by_span[k] for k in row_keys if k.startswith(name + "[")) == n
               for name, n in row_launches.items()),
-          f"[pe] every row kernel launch came from a call site ({row_launches_sites})")
+          f"[pe] every row kernel launch came from a call site ({by_span})")
     n_1, n_b = seen.get("tables_1_calls", 0), seen.get("tables_calls", 0)
     check(launches > 0 and launches == n_1 + n_b,
           f"[pe] the PE run launched the fd_dense kernel ({launches} = {n_1} + {n_b})")
@@ -671,10 +693,9 @@ def drive_pe(env):
     check(rel_w <= 1e-5, f"[pe] whitened template kernel vs plain rel L2 {rel_w:.3e} <= 1e-5")
     del w_k, w_p
 
-    # one 64-walker likelihood call, split by stage; the first input of each
-    # row-kernel call site is kept for the kernel records, and the inputs of
-    # its level-1 tables (the main slots)
-    timer = StageTimer(torch)
+    # one 64-walker likelihood call, split by the program's spans; the first
+    # input of each row-kernel call site is kept for the kernel records, and
+    # the inputs of its level-1 tables (the main slots)
     level1_in = []
 
     def level1_keeping(*a, **k):
@@ -683,19 +704,22 @@ def drive_pe(env):
         return chunks(*a, **k)
 
     chunks = summation_fd._level1_walker_chunks
-    with patched(wf, "schwarz_ecc_flux_inspiral",
-                 timer.wrap("trajectory", wf.schwarz_ecc_flux_inspiral)), \
-            patched(wf, "mode_amplitudes", timer.wrap("amplitudes", wf.mode_amplitudes)), \
-            patched(summation_fd, "_level1_uniform_tables",
-                    timer.wrap("level-1", summation_fd._level1_uniform_tables)), \
-            dense_function(summation_fd, timer.wrap("dense", fd_dense.fd_dense_accumulate)), \
-            patched(summation_fd, "_level1_walker_chunks", level1_keeping), \
-            at_sites(keep=True):
+    with patched(summation_fd, "_level1_walker_chunks", level1_keeping), at_sites():
+        tracing.reset()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        like(half)
+        with tracing.enabled():
+            ll_on = like(half)
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
-    rest = call_s - sum(timer.totals.values())
+    ll_off = like(half)
+    check(torch.equal(ll_on, ll_off),
+          "[pe] the likelihood call with tracing on equals it off, to the bit")
+    stage_ms = {}
+    for rec in tracing.records():
+        stage_ms[rec.name] = stage_ms.get(rec.name, 0.0) + (rec.end_ns - rec.start_ns) * 1e-6
+    rest = call_s * 1e3 - sum(stage_ms.get(k, 0.0) for k in (
+        "trajectory.dp5", "amplitudes", "core.level1", "core.dense"))
     # what the level-1 walker chunks cost this call: its main slots' tables
     # in chunks (as the call ran them) and in one pass, alternated
     l1_a, l1_k = level1_in[0]
@@ -712,27 +736,29 @@ def drive_pe(env):
             time_ms(lambda: summation_fd._level1_uniform_tables(*l1_a, **l1_k), 2, torch))
     del level1_in, l1_a, l1_k
     torch.cuda.empty_cache()
-    # the sampling wall holds the walkers' start (one evaluation of the
-    # whole ensemble) besides the steps; the step time leaves it out
     step_s = timing["steps_s"] / args.nsteps
     acc_mean = float(acc.mean())
     print(f"[pe] run_emri_pe ({PE_ARGS}): p0 {out['p0']:.6f}, injection SNR {out['snr']:.2f} "
           f"(the TPU's PE_VALIDATION.md run: {PE_SNR_TPU}), |log L(truth)| {abs(ll_truth):.3e}, "
           f"stored log L in [{ll.min():.4e}, {ll.max():.4e}], acceptance {acc_mean:.3f}, "
           f"fd_dense launches {launches} ({n_1} at B = 1, {n_b} batched), row kernel launches "
-          f"{row_launches} (by call site {row_launches_sites}), whitened template kernel vs "
+          f"{row_launches} (by call site {row_launches_sites}; by the program's innermost span "
+          f"{by_span}), whitened template kernel vs "
           f"plain rel L2 {rel_w:.3e}", flush=True)
     print(f"[timing pe] duration solve {timing['p0_solve_s']:.2f} s; injection "
           f"{timing['injection_s'] * 1e3:.1f} ms; one {half.shape[0]}-walker likelihood call "
-          f"{call_s * 1e3:.1f} ms (trajectory {timer.totals['trajectory'] * 1e3:.1f}, amplitudes "
-          f"{timer.totals['amplitudes'] * 1e3:.1f}, level-1 tables "
-          f"{timer.totals['level-1'] * 1e3:.1f}, dense {timer.totals['dense'] * 1e3:.1f}, the rest "
-          f"(Ylm, splines, whitening) {rest * 1e3:.1f}); the walkers' start (one "
+          f"{call_s * 1e3:.1f} ms, synchronized (the program's spans, host ms, not synchronized: "
+          f"trajectory {stage_ms.get('trajectory.dp5', 0.0):.1f}, amplitudes "
+          f"{stage_ms.get('amplitudes', 0.0):.1f}, level-1 tables "
+          f"{stage_ms.get('core.level1', 0.0):.1f}, dense {stage_ms.get('core.dense', 0.0):.1f}, "
+          f"the rest (Ylm, splines, whitening, the wait for the device) {rest:.1f}; splines "
+          f"{stage_ms.get('core.prepare', 0.0):.1f}, whitened residual "
+          f"{stage_ms.get('likelihood.power', 0.0):.1f}); the walkers' start (one "
           f"{args.ntemps * args.nwalkers}-walker evaluation) {timing['start_s']:.2f} s; one sampler "
           f"step {step_s:.2f} s (the {args.nsteps} steps' wall / {args.nsteps}); "
           f"{timing['evals_per_s']:.2f} posterior evaluations/s "
-          f"(nsteps x ntemps x nwalkers / wall, the wall holding the start as in the CLI); "
-          f"host clock, synchronized; on {card}", flush=True)
+          f"(nsteps x ntemps x nwalkers / the steps' wall, the walkers' start left out); "
+          f"host clock; on {card}", flush=True)
     print(f"[timing pe] level-1 tables of that call's main slots ({n_w} walkers x {n_s} slots x "
           f"{n_nodes} nodes): in walker chunks of {' + '.join(map(str, sizes))} (at most "
           f"{summation_fd._LEVEL1_NODES} nodes, as the call ran them) "

@@ -39,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .backends.memory import Backend
 from .moves.gaussian import GaussianMove
 from .moves.rj import DistributionGenerateRJ
@@ -358,19 +359,20 @@ class EnsembleSampler:
                               else None for m in self.moves)
         it0 = self.backend.iteration * thin_by
         for i in range(iterations):
-            for _ in range(thin_by):
-                (coords, log_like, log_prior, betas, seed, n_acc, swap_frac,
-                 move_info) = self._step(coords, log_like, log_prior, betas, seed, it0 + i,
-                                         move_info)
-            state = State(
-                branches={self.branch_name: state.branches[self.branch_name]._replace(
-                    coords=coords[:, :, None, :])},
-                log_like=log_like, log_prior=log_prior, betas=betas, random_state=seed,
-                move_info=move_info,
-            )
-            if store:
-                self.backend.save_step(state, n_acc, swap_frac=swap_frac)
-            stop = self._run_hooks(i, state)
+            with tracing.span("sampler.step"):
+                for _ in range(thin_by):
+                    (coords, log_like, log_prior, betas, seed, n_acc, swap_frac,
+                     move_info) = self._step(coords, log_like, log_prior, betas, seed, it0 + i,
+                                             move_info)
+                state = State(
+                    branches={self.branch_name: state.branches[self.branch_name]._replace(
+                        coords=coords[:, :, None, :])},
+                    log_like=log_like, log_prior=log_prior, betas=betas, random_state=seed,
+                    move_info=move_info,
+                )
+                if store:
+                    self.backend.save_step(state, n_acc, swap_frac=swap_frac)
+                stop = self._run_hooks(i, state)
             yield state
             if stop:
                 return
@@ -382,16 +384,18 @@ class EnsembleSampler:
         seed = state.random_state
         it0 = self.backend.iteration * thin_by
         for i in range(iterations):
-            for _ in range(thin_by):
-                (coords, inds, log_like, log_prior, betas, seed, n_acc, n_rj,
-                 swap_frac) = self._step_tree(coords, inds, log_like, log_prior, betas, seed,
-                                              it0 + i)
-            state = State(branches={k: Branch(coords=coords[k], inds=inds[k]) for k in coords},
-                          log_like=log_like, log_prior=log_prior, betas=betas,
-                          random_state=seed)
-            if store:
-                self.backend.save_step(state, n_acc, rj_accepted=n_rj, swap_frac=swap_frac)
-            stop = self._run_hooks(i, state)
+            with tracing.span("sampler.step"):
+                for _ in range(thin_by):
+                    (coords, inds, log_like, log_prior, betas, seed, n_acc, n_rj,
+                     swap_frac) = self._step_tree(coords, inds, log_like, log_prior, betas,
+                                                  seed, it0 + i)
+                state = State(branches={k: Branch(coords=coords[k], inds=inds[k])
+                                        for k in coords},
+                              log_like=log_like, log_prior=log_prior, betas=betas,
+                              random_state=seed)
+                if store:
+                    self.backend.save_step(state, n_acc, rj_accepted=n_rj, swap_frac=swap_frac)
+                stop = self._run_hooks(i, state)
             yield state
             if stop:
                 return

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.row_ops import row_sum
+from ..utils import tracing
 from ..utils.device import resolve_device
 
 
@@ -149,6 +150,7 @@ class Likelihood:
         step = n if self.subset is None else max(int(self.subset), 1)
         return [params[i:i + step] for i in range(0, n, step)]
 
+    @tracing.spanned("likelihood.power")
     def _power(self, chans, lo: int, hi: int) -> torch.Tensor:
         """sum over channels of sum_{lo <= i < hi} |d_i - h_i|^2 per row, from
         whitened template channels that cover those bins."""
@@ -189,6 +191,7 @@ class Likelihood:
     def get_ll(self, params, **kwargs):
         return self(params, **kwargs)
 
+    @tracing.spanned("likelihood.call")
     def __call__(self, params, **waveform_kwargs) -> torch.Tensor:
         """log L of each row of ``params`` (n, ndim): (n,) float64 on the
         likelihood's device."""
@@ -234,6 +237,10 @@ class GlobalLikelihood(Likelihood):
     def get_ll(self, params, groups=None, **kwargs):
         if groups is None:
             return self(params, **kwargs)
+        with tracing.span("likelihood.call"):
+            return self._grouped_ll(params, groups)
+
+    def _grouped_ll(self, params, groups) -> torch.Tensor:
         if self.injection_whitened is None:
             raise RuntimeError("call inject_signal first")
         params = self._as_params(params)

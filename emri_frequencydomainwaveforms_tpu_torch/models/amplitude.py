@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.row_ops import row_sum
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .geodesic import _N_CHI, _antiderivative_matrix
 from .rho import _x_of_mode, factorized_correction
@@ -336,6 +337,7 @@ def _orbit_harmonics(p, e, n_max: int, fam_subset: tuple[int, ...] | None = None
     )
 
 
+@tracing.spanned("amplitudes")
 def mode_amplitudes(
     p: torch.Tensor, e: torch.Tensor, table: ModeTable,
     *, tail: bool = False, tail_r0: float = 2.0,

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from ..utils.constants import MTSUN_SI, YRSID_SI
 from ..utils.device import resolve_device
 from .flux import FluxGrid, default_flux_grid, inspiral_rhs, pn_flux_e_l, stop_condition
@@ -115,38 +116,41 @@ def schwarz_ecc_flux_inspiral(
     if method == "quad":
         from .trajectory_quad import schwarz_ecc_flux_inspiral_quad
 
-        return schwarz_ecc_flux_inspiral_quad(
-            mass_1, mass_2, p0, e0, t_years=t_years, Phi_phi0=Phi_phi0, Phi_r0=Phi_r0,
-            max_steps=max_steps, delta_p_stop=delta_p_stop, flux=flux, flux_grid=flux_grid,
-            device=device,
-        )
+        with tracing.span("trajectory.quad"):
+            return schwarz_ecc_flux_inspiral_quad(
+                mass_1, mass_2, p0, e0, t_years=t_years, Phi_phi0=Phi_phi0, Phi_r0=Phi_r0,
+                max_steps=max_steps, delta_p_stop=delta_p_stop, flux=flux, flux_grid=flux_grid,
+                device=device,
+            )
     if method != "dp5":
         raise ValueError(f"method={method!r}: expected 'dp5' or 'quad'")
-    m, mu, p0, e0, ph0, pr0 = _batch_f64(mass_1, mass_2, p0, e0, Phi_phi0, Phi_r0, device=device)
-    flux_fn = flux_model(flux, p0.device, flux_grid)
-    nu = mu / m
-    t_max_geo = t_years * YRSID_SI / (m * MTSUN_SI)
-    y0 = torch.stack([p0, e0, ph0, pr0], dim=-1)
-    knots: InspiralKnots = integrate_inspiral(
-        lambda y: inspiral_rhs(y, nu, flux_fn),
-        lambda y: stop_condition(y, delta_p_stop),
-        y0,
-        t_max_geo,
-        max_steps=max_steps,
-        rtol=rtol,
-        tail_slope_mask=(0.0, 0.0, 1.0, 1.0),
-    )
-    t_sec = knots.t * (m * MTSUN_SI)[:, None]
-    return Trajectory(
-        t=t_sec,
-        p=knots.y[..., 0],
-        e=knots.y[..., 1],
-        x=torch.ones_like(knots.t),
-        Phi_phi=knots.y[..., 2],
-        Phi_theta=torch.zeros_like(knots.t),
-        Phi_r=knots.y[..., 3],
-        n=knots.n,
-    )
+    with tracing.span("trajectory.dp5"):
+        m, mu, p0, e0, ph0, pr0 = _batch_f64(mass_1, mass_2, p0, e0, Phi_phi0, Phi_r0,
+                                             device=device)
+        flux_fn = flux_model(flux, p0.device, flux_grid)
+        nu = mu / m
+        t_max_geo = t_years * YRSID_SI / (m * MTSUN_SI)
+        y0 = torch.stack([p0, e0, ph0, pr0], dim=-1)
+        knots: InspiralKnots = integrate_inspiral(
+            lambda y: inspiral_rhs(y, nu, flux_fn),
+            lambda y: stop_condition(y, delta_p_stop),
+            y0,
+            t_max_geo,
+            max_steps=max_steps,
+            rtol=rtol,
+            tail_slope_mask=(0.0, 0.0, 1.0, 1.0),
+        )
+        t_sec = knots.t * (m * MTSUN_SI)[:, None]
+        return Trajectory(
+            t=t_sec,
+            p=knots.y[..., 0],
+            e=knots.y[..., 1],
+            x=torch.ones_like(knots.t),
+            Phi_phi=knots.y[..., 2],
+            Phi_theta=torch.zeros_like(knots.t),
+            Phi_r=knots.y[..., 3],
+            n=knots.n,
+        )
 
 
 class EMRIInspiral:
@@ -190,6 +194,7 @@ def inspiral_duration(mass_1, mass_2, p0, e0, *, t_cap_years: float = 8.0,
     return traj.t.gather(1, last[:, None])[:, 0]
 
 
+@tracing.spanned("duration_solve")
 def get_p_at_t(
     mass_1,
     mass_2,
@@ -222,6 +227,7 @@ def get_p_at_t(
     return 0.5 * (lo + hi)
 
 
+@tracing.spanned("duration_solve")
 def get_mu_at_t(
     mass_1,
     p0,

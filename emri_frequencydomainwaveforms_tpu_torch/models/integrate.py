@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils import tracing
+
 # Dormand-Prince 5(4) tableau.
 _A = (
     (),
@@ -108,10 +110,12 @@ def integrate_inspiral(
         err_norm = torch.where(torch.isnan(err_norm), torch.inf, err_norm)
         return y5, err_norm, k[6]
 
+    trips = 0
     while True:
         active = (~done) & (iters < max_iters) & (count < max_steps)
         if not bool(active.any()):
             break
+        trips += 1
         hs = torch.minimum(h, t_max - t)  # land exactly on t_max
         y_new, err_norm, k_last = one_step(y, hs, k0)
         accept = err_norm <= 1.0
@@ -147,6 +151,14 @@ def integrate_inspiral(
         y = torch.where(accept_final[:, None], y_new, y)
         iters = torch.where(active, iters + 1, iters)
 
+    if tracing.active():
+        # a lane slot of a trip is an accepted step, a rejected one, or a
+        # finished lane waiting for the slowest
+        accepted = int(count.sum()) - n_b
+        tracing.count("dp5.trips", trips)
+        tracing.count("dp5.lane_slots", n_b * trips)
+        tracing.count("dp5.accepted", accepted)
+        tracing.count("dp5.rejected", int(iters.sum()) - accepted)
     n = count
     n_l = (n - 1).clamp_min(0).long()
     idxs = torch.arange(max_steps, device=dev)

@@ -39,6 +39,7 @@ from ..ops.bessel import kve_one_third_imag
 from ..ops.cubic_spline import fit_cubic_spline, spline_eval
 from ..ops.fd_dense import DenseGroup, fd_dense_accumulate
 from ..ops.row_ops import row_cumsum
+from ..utils import tracing
 from .amplitude import ModeTable
 from .modeselect import SelectedModes, top_k_stable
 
@@ -104,6 +105,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, view)
 
 
+@tracing.spanned("core.prepare")
 def prepare_fd_inputs(
     t_knots: torch.Tensor,
     n_live: torch.Tensor,
@@ -537,7 +539,8 @@ def fd_mode_sum_uniform(
         # window starts relative to the shard's first run (negative for a
         # window that begins before it; the dense pass drops those bins)
         groups = [g._replace(g0=(g.g0 - lo // r).contiguous()) for g in groups]
-    out = fd_dense_accumulate(groups, r=r, nf=hi - lo)  # (B, 4, hi - lo) float32
+    with tracing.span("core.dense"):
+        out = fd_dense_accumulate(groups, r=r, nf=hi - lo)  # (B, 4, hi - lo) float32
     dt_out = t_knots.dtype if out_dtype is None else out_dtype
     return tuple(out[:, c].to(dt_out) for c in range(4))
 
@@ -613,6 +616,7 @@ def _polar_envelope(e_re: torch.Tensor, e_im: torch.Tensor, anchor=None):
 _LEVEL1_NODES = 1 << 25
 
 
+@tracing.spanned("core.level1")
 def _level1_walker_chunks(cphi_all, ar_all, ai_all, f_knots_all, g0_all, k_lo, k_hi, dirn,
                           t_knots, f0, df, r, n_nodes, run_df, cycle_split=False):
     """`_level1_uniform_tables` in chunks of walkers of at most
@@ -627,6 +631,7 @@ def _level1_walker_chunks(cphi_all, ar_all, ai_all, f_knots_all, g0_all, k_lo, k
                                f0, df, r, n_nodes, run_df, cycle_split=cycle_split)
         for b in range(0, n_b, step)
     ]
+    tracing.count("level1.chunks", len(parts))
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat(col, dim=0) for col in zip(*parts))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.cubic_spline import fit_cubic_spline, spline_eval
+from ..utils import tracing
 from ..utils.constants import Gpc, MRSUN_SI, YRSID_SI
 from ..utils.device import resolve_device
 from ..utils.ylm import spin_weighted_ylm
@@ -53,6 +54,7 @@ class WaveformPrologue(NamedTuple):
     dist_factor: torch.Tensor  # (B,)
 
 
+@tracing.spanned("waveform.prologue")
 def waveform_prologue(
     mass_1,
     mass_2,
@@ -109,8 +111,9 @@ def waveform_prologue(
         family_c=family_c, rwz_rows=rwz_rows,
     )  # (B, K, M)
 
-    yp_re, yp_im = spin_weighted_ylm(table.ls, table.ms, theta, phi)
-    ym_re, ym_im = spin_weighted_ylm(table.ls, -table.ms, theta, phi)
+    with tracing.span("ylm"):
+        yp_re, yp_im = spin_weighted_ylm(table.ls, table.ms, theta, phi)
+        ym_re, ym_im = spin_weighted_ylm(table.ls, -table.ms, theta, phi)
 
     n_b, k_knots = traj.t.shape
     live = (torch.arange(k_knots, device=dev)[None, :] < traj.n[:, None]).to(dt)
@@ -123,14 +126,15 @@ def waveform_prologue(
             power=torch.zeros((n_b, k_sel), dtype=dt, device=dev),
         )
     else:
-        power = mode_power(a_re, a_im, yp_re, yp_im, ym_re, ym_im, dt_weights=live)
-        # slots ordered by band-start frequency so slot identity is stable
-        # across the batch (shared window offsets)
-        om_phi0, om_r0 = fundamental_frequencies_seconds(traj.p[:, 0], traj.e[:, 0], m1)
-        ms = torch.as_tensor(table.ms.astype(np.float64), dtype=dt, device=dev)
-        ns = torch.as_tensor(table.ns.astype(np.float64), dtype=dt, device=dev)
-        f_start_key = (ms * om_phi0[:, None] + ns * om_r0[:, None]) / (2.0 * math.pi)
-        sel = select_modes(power, k_max, eps, order_key=f_start_key)
+        with tracing.span("selection"):
+            power = mode_power(a_re, a_im, yp_re, yp_im, ym_re, ym_im, dt_weights=live)
+            # slots ordered by band-start frequency so slot identity is stable
+            # across the batch (shared window offsets)
+            om_phi0, om_r0 = fundamental_frequencies_seconds(traj.p[:, 0], traj.e[:, 0], m1)
+            ms = torch.as_tensor(table.ms.astype(np.float64), dtype=dt, device=dev)
+            ns = torch.as_tensor(table.ns.astype(np.float64), dtype=dt, device=dev)
+            f_start_key = (ms * om_phi0[:, None] + ns * om_r0[:, None]) / (2.0 * math.pi)
+            sel = select_modes(power, k_max, eps, order_key=f_start_key)
 
     dist_factor = m2 * MRSUN_SI / (dist * Gpc)
     t_end = traj.t.gather(1, (traj.n - 1).clamp_min(0).long()[:, None])[:, 0]
@@ -154,6 +158,7 @@ def _sigma(table: ModeTable, device=None) -> torch.Tensor:
     return torch.as_tensor(((-1.0) ** table.ls).astype(np.float64), device=device)
 
 
+@tracing.spanned("waveform.core")
 def fd_waveform_core(
     pro: WaveformPrologue,
     table: ModeTable,
@@ -805,6 +810,7 @@ class FrozenFDWaveform(torch.nn.Module):
         under the Peters-Mathews flux)."""
         return FluxGrid(*self._flux_axes, self.flux_values) if self._flux_axes else None
 
+    @tracing.spanned("waveform.batch")
     def forward(self, p0, e0, theta, phi):
         pro = waveform_prologue(
             self.mass_1, self.mass_2, p0, e0, theta, phi, self.dist, 0.0, 0.0,

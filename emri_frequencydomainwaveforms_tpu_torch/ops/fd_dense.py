@@ -36,6 +36,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import cuda_build
 
 _TWO_PI = 2.0 * math.pi
@@ -241,6 +242,7 @@ def fd_dense_accumulate(groups: Sequence[DenseGroup], *, r: int, nf: int) -> tor
     if err != 0:
         raise RuntimeError(f"fd_dense kernel launch failed: cudaError {err}")
     fd_dense_accumulate.launches += 1
+    tracing.count("fd_dense.launches")
     return out
 
 

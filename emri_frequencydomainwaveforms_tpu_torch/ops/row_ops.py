@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import cuda_build
 
 VECTOR_BYTES = 16  # a lane's load: 4 float32 or 2 float64 consecutive elements
@@ -104,6 +105,7 @@ def _launch_row_sum(x: torch.Tensor, mean: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"row_sum kernel launch failed: cudaError {err}")
     row_sum.launches += 1
+    tracing.count("row_sum.launches")
     return out
 
 
@@ -181,6 +183,7 @@ def row_cumsum(x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"row_cumsum kernel launch failed: cudaError {err}")
     row_cumsum.launches += 1
+    tracing.count("row_cumsum.launches")
     return out
 
 
