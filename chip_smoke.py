@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from the sources in this checkout (the
-dense pass and the fixed-order row kernels, one nvcc each, at once),
+dense pass, the fixed-order row kernels and the dp5 trajectory, one nvcc
+each, at once),
 checks the dense pass against its plain PyTorch version on the card at the
 main path's shapes and on small adversarial layouts, then drives the port's main path
 at full width: a 128-walker batch of all-mode FD waveforms of a 1-yr source
@@ -10,7 +11,9 @@ at dt = 10 s (1,577,907 positive bins), eps = 1e-2 selection frozen to 16
 slots, 256-run windows of 64 bins and 2 turnover slots, the same module
 once at B = 1 (the unbatched TPU kernel's path) and the batch once more with
 the program's tracer on (equal to the bit, its counters held against the
-kernel's count and the trajectory's knots). It does so twice: with the
+kernel's count and the trajectory's knots), and the dp5 trajectory kernel
+against its plain loop on the card (`[dp5]`: the knots lane by lane, the
+batch's spectra, one lane alone). It does so twice: with the
 flat physics (Peters-Mathews flux, plain multipole amplitudes) and with the
 production physics (``flux="multipole_rwz"``, tail + factorized + rwz
 amplitudes), whose flux grid it first builds on the card. On the production
@@ -23,8 +26,10 @@ parameter-estimation path users run, `cli/emri_pe.py`'s `run_emri_pe` at
 the production settings (1 yr, dt 10 s, downsample 100, rwz physics, kmax 48
 frozen, 32 walkers x 4 temperatures, 3 sampler steps) with the in-memory
 chain backend, and checks the zero residual at the injection, the stored
-chain, one whitened walker batch against the plain dense pass and one
-likelihood call with the program's tracer on against it off. Between
+chain, one whitened walker batch against the plain dense pass, one
+likelihood call with the program's tracer on against it off, every
+trajectory of the run through the dp5 kernel and one likelihood call's log
+L against the plain dp5 loop's (`[dp5] pe`). Between
 the two it drives the production batch again through the parallel-in-time
 quadrature trajectory (``traj_method="quad"``: checks, the trajectory issued
 with no host sync and equal to the CPU's, quad against dp5, and both
@@ -92,6 +97,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -359,6 +365,12 @@ def patched(module, name, fn):
         setattr(module, name, saved)
 
 
+def dp5_route(inspiral, fn):
+    """Route the dp5 trajectories of `inspiral.schwarz_ecc_flux_inspiral`
+    through ``fn`` (`ops.dp5_inspiral`'s signature) for the duration."""
+    return patched(inspiral, "dp5", types.SimpleNamespace(dp5_inspiral=fn))
+
+
 def dense_function(summation_fd, fn):
     """Route the FD core's dense pass through ``fn`` for the duration."""
     return patched(summation_fd, "fd_dense_accumulate", fn)
@@ -495,6 +507,38 @@ def drive_path(label, phys, env):
           and dp5["dp5.accepted"] + dp5["dp5.rejected"] <= dp5["dp5.lane_slots"]
           == BATCH * dp5["dp5.trips"],
           f"{label}: dp5 counters {dp5} hold against the knots (sum n {int(traj.n.sum())})")
+    # the trajectory kernel against its plain version on the card: the
+    # knots lane by lane, the batch's spectra, one lane alone
+    dp5_mod = env["dp5"]
+    check(dp5.get("dp5.kernel_lanes") == BATCH,
+          f"{label}: dp5.kernel_lanes {dp5.get('dp5.kernel_lanes')} = B x 1 call")
+    traj_kw = dict(t_years=T_YEARS, max_steps=MAX_STEPS, flux=flux, flux_grid=grid)
+    with dp5_route(env["inspiral"], dp5_mod.dp5_inspiral_reference):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj_plain = env["inspiral"].schwarz_ecc_flux_inspiral(1e6, 10.0, batch[0], batch[1],
+                                                               **traj_kw)
+        torch.cuda.synchronize()
+        plain_traj_s = time.perf_counter() - t0
+        out_plain = gen(*batch)
+    torch.cuda.synchronize()
+    same = sum(all(torch.equal(a[i], b[i]) for a, b in zip(traj, traj_plain))
+               for i in range(BATCH))
+    rel_plain = float(lane_rel_l2(out, out_plain).max())
+    check(rel_plain <= 1e-6, f"[dp5] {label}: the batch's spectra, trajectory kernel vs plain "
+          f"version, worst lane rel L2 {rel_plain:.3e} <= 1e-6")
+    one = env["inspiral"].schwarz_ecc_flux_inspiral(1e6, 10.0, batch[0][:1], batch[1][:1],
+                                                    **traj_kw)
+    check(all(torch.equal(a[0], b[0]) for a, b in zip(one, traj)),
+          f"[dp5] {label}: lane 0 alone equals it in the {BATCH}-lane batch, to the bit")
+    del out_plain, traj_plain
+    print(f"[dp5] {label}: {BATCH} lanes, max_steps {MAX_STEPS}, "
+          f"{'Peters-Mathews' if flux == 'pm' else 'the ' + flux + ' grid'}: {same} of {BATCH} "
+          f"lanes' knots equal the plain version's to the bit; spectra vs the plain version worst "
+          f"lane rel L2 {rel_plain:.3e} (<= 1e-6); lane 0 alone = in the batch to the bit; "
+          f"dp5.kernel_lanes {dp5['dp5.kernel_lanes']} = B x 1 call; trajectory kernel "
+          f"{stage['trajectory'] * 1e3:.1f} ms (traced), plain {plain_traj_s * 1e3:.1f} ms, host "
+          f"clock, synchronized; on {card}", flush=True)
     rows = (gen.rwz_b_rows, gen.rwz_r_rows) if gen.rwz else None
     t0 = time.perf_counter()
     env["amplitude"].mode_amplitudes(traj.p, traj.e, table_k, family_c=gen.family_c,
@@ -602,13 +646,15 @@ def drive_pe(env):
     from emri_frequencydomainwaveforms_tpu_torch.models import amplitude, geodesic
     from emri_frequencydomainwaveforms_tpu_torch.ops import row_ops
     from emri_frequencydomainwaveforms_tpu_torch.utils import tracing
+    dp5_mod = env["dp5"]
 
     args = emri_pe.build_parser().parse_args(PE_ARGS.split())
     seen = {}
     row_kernels = (row_ops.row_sum, row_ops.row_cumsum)
     # each row kernel's call sites on the PE path: (module, name, site, the
     # program's spans around it; the geodesic's sums run in the trajectory's
-    # RHS and in the mode selection's frequencies)
+    # tail, whose jvp through the phases' rates launches 4 a call, and in the
+    # mode selection's frequencies)
     row_sites = ((geodesic, "row_sum", "row_sum[rhs]", ("trajectory.dp5", "selection")),
                  (amplitude, "row_sum", "row_sum[amplitudes]", ("amplitudes",)),
                  (lisa_likelihood, "row_sum", "row_sum[likelihood]", ("likelihood.power",)),
@@ -616,11 +662,12 @@ def drive_pe(env):
     row_inputs = {}
 
     def at_sites():
-        """Patch every call site to keep its first inputs."""
+        """Patch every call site to keep its first inputs (outside a jvp,
+        whose inputs are dual tensors)."""
         stack = contextlib.ExitStack()
         for module, name, site, _ in row_sites:
             def run(*a, _fn=getattr(module, name), _site=site, **k):
-                if _site not in row_inputs:
+                if _site not in row_inputs and not torch._C._are_functorch_transforms_active():
                     row_inputs[_site] = (_fn, tuple(t.clone() for t in a), dict(k))
                 return _fn(*a, **k)
             stack.enter_context(patched(module, name, run))
@@ -633,13 +680,27 @@ def drive_pe(env):
         seen[key + "_calls"] = seen.get(key + "_calls", 0) + 1
         return fd_dense.fd_dense_accumulate(groups, r=r, nf=nf)
 
+    trajectory_lanes = []
+
+    def counting(y0, *a, _fn=dp5_mod.dp5_inspiral, **k):
+        trajectory_lanes.append(y0.shape[0])
+        return _fn(y0, *a, **k)
+
     fd_dense.fd_dense_accumulate.launches = 0
     for fn in row_kernels:
         fn.launches = 0
+    dp5_launches = dp5_mod.dp5_inspiral.launches
     tracing.reset()
-    with dense_function(summation_fd, keep_first), tracing.enabled():
+    with dense_function(summation_fd, keep_first), tracing.enabled(), \
+            dp5_route(env["inspiral"], counting):
         out = emri_pe.run_emri_pe(args, backend=Backend())
     torch.cuda.synchronize()
+    dp5_launches = dp5_mod.dp5_inspiral.launches - dp5_launches
+    kernel_lanes = tracing.totals().get("dp5.kernel_lanes", 0)
+    check(dp5_launches == len(trajectory_lanes) > 0 and kernel_lanes == sum(trajectory_lanes),
+          f"[dp5] pe: every trajectory of the PE run went through the kernel ({dp5_launches} "
+          f"launches of {len(trajectory_lanes)} calls; dp5.kernel_lanes {kernel_lanes} = "
+          f"sum of B over the calls {sum(trajectory_lanes)})")
     launches = fd_dense.fd_dense_accumulate.launches
     row_launches = {fn.__name__: fn.launches for fn in row_kernels}
     # each launch the program counted, by kernel and innermost span
@@ -663,6 +724,9 @@ def drive_pe(env):
     check(all(v > 0 for v in row_launches_sites.values()),
           f"[pe] the PE run launched every row kernel from each of its call sites "
           f"({row_launches_sites})")
+    check(by_span.get("row_sum[trajectory.dp5]") == 4 * dp5_launches,
+          f"[pe] row_sum[rhs] on trajectory.dp5 only in each trajectory's tail "
+          f"({by_span.get('row_sum[trajectory.dp5]')} = 4 x {dp5_launches} calls)")
     check(n_1 >= 1 and n_b >= 2 * args.nsteps, f"[pe] B = 1 calls {n_1}, batched calls {n_b}")
     like, backend, timing = out["likelihood"], out["backend"], out["timing"]
 
@@ -715,6 +779,38 @@ def drive_pe(env):
     ll_off = like(half)
     check(torch.equal(ll_on, ll_off),
           "[pe] the likelihood call with tracing on equals it off, to the bit")
+    # the same call with the plain dp5 loop: log L and each walker's knots
+    trajs = {}
+
+    def keeping_trajectory(side):
+        def run(*a, _fn=wf.schwarz_ecc_flux_inspiral, **k):
+            trajs[side] = _fn(*a, **k)
+            return trajs[side]
+        return patched(wf, "schwarz_ecc_flux_inspiral", run)
+
+    with keeping_trajectory("kernel"):
+        ll_kernel = like(half)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with keeping_trajectory("plain"), dp5_route(env["inspiral"],
+                                                dp5_mod.dp5_inspiral_reference):
+        ll_plain = like(half)
+    torch.cuda.synchronize()
+    plain_call_s = time.perf_counter() - t0
+    rel_ll = float(((ll_kernel - ll_plain).abs() / ll_plain.abs()).max())
+    check(torch.equal(ll_kernel, ll_off) and rel_ll <= 1e-9,
+          f"[dp5] pe: the {half.shape[0]}-row log L, trajectory kernel vs plain version, "
+          f"rel {rel_ll:.3e} <= 1e-9")
+    n_rows = half.shape[0]
+    same_pe = sum(all(torch.equal(a[i], b[i]) for a, b in zip(trajs["kernel"], trajs["plain"]))
+                  for i in range(n_rows))
+    print(f"[dp5] pe: {n_rows} rows, max_steps {trajs['kernel'].t.shape[1]}, the "
+          f"{args.flux} grid: {same_pe} of {n_rows} rows' knots equal the plain version's to "
+          f"the bit; log L vs the plain version max rel {rel_ll:.3e} (<= 1e-9); the likelihood "
+          f"call with the plain loop {plain_call_s * 1e3:.1f} ms; the PE run's {dp5_launches} "
+          f"trajectories all through the kernel (dp5.kernel_lanes {kernel_lanes}); on {card}",
+          flush=True)
+    del trajs
     stage_ms = {}
     for rec in tracing.records():
         stage_ms[rec.name] = stage_ms.get(rec.name, 0.0) + (rec.end_ns - rec.start_ns) * 1e-6
@@ -2676,6 +2772,7 @@ def main() -> None:
     from emri_frequencydomainwaveforms_tpu_torch.models import modeselect, summation_fd
     from emri_frequencydomainwaveforms_tpu_torch.models import waveform as wf
     from emri_frequencydomainwaveforms_tpu_torch.ops import cubic_spline, cuda_build, fd_dense
+    from emri_frequencydomainwaveforms_tpu_torch.ops import dp5_inspiral
     from emri_frequencydomainwaveforms_tpu_torch.testing import fd_dense_cases as cases
     from emri_frequencydomainwaveforms_tpu_torch.utils import fdutils
     from emri_frequencydomainwaveforms_tpu_torch.utils.ylm import spin_weighted_ylm
@@ -2747,7 +2844,7 @@ def main() -> None:
     ths = 0.7 + 0.2 * (rng.random(BATCH) - 0.5)
     phs = 0.5 + 0.2 * (rng.random(BATCH) - 0.5)
     batch = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (p0s, e0s, ths, phs)]
-    env = dict(torch=torch, dev=dev, card=card, wf=wf, fd_dense=fd_dense,
+    env = dict(torch=torch, dev=dev, card=card, wf=wf, fd_dense=fd_dense, dp5=dp5_inspiral,
                summation_fd=summation_fd, inspiral=inspiral, amplitude=amplitude,
                cubic_spline=cubic_spline, table=table, batch=batch, nf=nf, f0u=f0u, dfu=dfu,
                cases=cases)

@@ -234,6 +234,13 @@ def inspiral_rhs(state: torch.Tensor, nu, flux_fn=pn_flux_e_l) -> torch.Tensor:
     return torch.stack([nu * pdot, nu * edot, omega_phi, omega_r], dim=-1)
 
 
+def inspiral_phase_rates(state: torch.Tensor) -> torch.Tensor:
+    """The phase components of `inspiral_rhs`, (B, 4) -> (B, 2): the orbital
+    frequencies (Omega_phi, Omega_r) at (p, e), by the same operations."""
+    e_safe = torch.clamp_min(state[..., 1], 1.0e-9)
+    return torch.stack(fundamental_frequencies(state[..., 0], e_safe), dim=-1)
+
+
 def stop_condition(state: torch.Tensor, delta_p_stop: float = 0.12) -> torch.Tensor:
     """True where the orbit reaches p <= p_sep + delta_p_stop."""
     return state[..., 0] <= separatrix(state[..., 1]) + delta_p_stop
@@ -250,5 +257,6 @@ __all__ = [
     "as_flux_fn",
     "InspiralRHS",
     "inspiral_rhs",
+    "inspiral_phase_rates",
     "stop_condition",
 ]

@@ -19,9 +19,10 @@ import torch
 from ..utils import tracing
 from ..utils.constants import MTSUN_SI, YRSID_SI
 from ..utils.device import resolve_device
-from .flux import FluxGrid, default_flux_grid, inspiral_rhs, pn_flux_e_l, stop_condition
+from .flux import FluxGrid, default_flux_grid, pn_flux_e_l
 from .geodesic import separatrix
-from .integrate import InspiralKnots, integrate_inspiral
+from .integrate import InspiralKnots
+from ..ops import dp5_inspiral as dp5
 
 
 class Trajectory(NamedTuple):
@@ -104,7 +105,8 @@ def schwarz_ecc_flux_inspiral(
         rwz strong-field calibration).
       flux_grid: the multipole grid to interpolate instead of the default
         one of that rung (`flux.default_flux_grid`, built on first use).
-      method: "dp5" (the adaptive stepper, one host sync per step) or
+      method: "dp5" (the adaptive stepper: on the card one kernel launch,
+        `ops.dp5_inspiral`; on the CPU the plain batched loop) or
         "quad" (`trajectory_quad`: p as the clock, a fixed-depth pass with
         no host sync; every one of the ``max_steps`` knots live).
       device: where to run; default the first tensor argument's device, else
@@ -131,14 +133,9 @@ def schwarz_ecc_flux_inspiral(
         nu = mu / m
         t_max_geo = t_years * YRSID_SI / (m * MTSUN_SI)
         y0 = torch.stack([p0, e0, ph0, pr0], dim=-1)
-        knots: InspiralKnots = integrate_inspiral(
-            lambda y: inspiral_rhs(y, nu, flux_fn),
-            lambda y: stop_condition(y, delta_p_stop),
-            y0,
-            t_max_geo,
-            max_steps=max_steps,
+        knots: InspiralKnots = dp5.dp5_inspiral(
+            y0, t_max_geo, nu, flux_fn, delta_p_stop=delta_p_stop, max_steps=max_steps,
             rtol=rtol,
-            tail_slope_mask=(0.0, 0.0, 1.0, 1.0),
         )
         t_sec = knots.t * (m * MTSUN_SI)[:, None]
         return Trajectory(

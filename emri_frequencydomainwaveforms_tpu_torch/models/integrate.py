@@ -8,7 +8,11 @@ does (a lane's whole carry, including its iteration count, stops changing
 once its own loop condition is false). Accepted steps are written into a
 fixed ``(B, max_steps)`` knot buffer; the tail past the live knots is padded
 with a strictly increasing time ramp, constant (p, e) and curvature-matched
-quadratic phases (see the reference for why).
+quadratic phases (see the reference for why), by `pad_knots`.
+
+This loop is the plain version of the dp5 trajectory: on CUDA tensors
+`ops.dp5_inspiral` runs each lane's loop in one kernel launch instead, with
+the same knots, and pads them with `pad_knots` too.
 """
 
 from __future__ import annotations
@@ -159,7 +163,35 @@ def integrate_inspiral(
         tracing.count("dp5.lane_slots", n_b * trips)
         tracing.count("dp5.accepted", accepted)
         tracing.count("dp5.rejected", int(iters.sum()) - accepted)
-    n = count
+    slopes = None
+    if tail_slope_mask is not None:
+        mask = torch.as_tensor(tail_slope_mask, dtype=dtype, device=dev)
+
+        def slopes(last_y):
+            rates_full, acc_full = torch.func.jvp(rhs, (last_y,), (rhs(last_y),))
+            # at the separatrix edge the RHS derivative can leave the bound-orbit
+            # domain: fall back to linear continuation there
+            acc_full = torch.where(torch.isfinite(acc_full), acc_full, torch.zeros_like(acc_full))
+            return rates_full * mask, acc_full * mask
+
+    return pad_knots(t_buf, y_buf, count, slopes)
+
+
+def pad_knots(
+    t_buf: torch.Tensor,
+    y_buf: torch.Tensor,
+    n: torch.Tensor,
+    slopes: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]] | None = None,
+) -> InspiralKnots:
+    """The knots past each lane's ``n`` live ones (whatever ``t_buf`` (B,
+    max_steps) and ``y_buf`` (B, max_steps, D) hold there): a strictly
+    increasing time ramp, and the quadratic of value, rate and curvature at
+    the last live knot, ``slopes(last_y) -> (rates, acc)`` each (B, D) (a
+    component with zero rate and curvature stays constant); no ``slopes``:
+    the last live state."""
+    dtype, dev = t_buf.dtype, t_buf.device
+    n_b, max_steps = t_buf.shape
+    lanes = torch.arange(n_b, device=dev)
     n_l = (n - 1).clamp_min(0).long()
     idxs = torch.arange(max_steps, device=dev)
     last_t = t_buf[lanes, n_l]
@@ -168,14 +200,8 @@ def integrate_inspiral(
     t_pad = last_t[:, None] + pad_dt[:, None] * (idxs[None, :] - (n[:, None] - 1)).to(dtype)
     live = idxs[None, :] < n[:, None]
     t_out = torch.where(live, t_buf, t_pad)
-    if tail_slope_mask is not None:
-        mask = torch.as_tensor(tail_slope_mask, dtype=dtype, device=dev)
-        rates_full, acc_full = torch.func.jvp(rhs, (last_y,), (rhs(last_y),))
-        # at the separatrix edge the RHS derivative can leave the bound-orbit
-        # domain: fall back to linear continuation there
-        acc_full = torch.where(torch.isfinite(acc_full), acc_full, torch.zeros_like(acc_full))
-        rates = rates_full * mask
-        acc = acc_full * mask
+    if slopes is not None:
+        rates, acc = slopes(last_y)
         dt_pad = (t_pad - last_t[:, None])[:, :, None]
         y_pad = last_y[:, None, :] + rates[:, None, :] * dt_pad + 0.5 * acc[:, None, :] * dt_pad**2
     else:
@@ -184,4 +210,4 @@ def integrate_inspiral(
     return InspiralKnots(t=t_out, y=y_out, n=n)
 
 
-__all__ = ["InspiralKnots", "integrate_inspiral"]
+__all__ = ["InspiralKnots", "integrate_inspiral", "pad_knots"]

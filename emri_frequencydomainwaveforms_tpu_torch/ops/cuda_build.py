@@ -21,7 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("fd_dense", "row_ops")
+SOURCES = ("fd_dense", "row_ops", "dp5_inspiral")
 
 
 def _nvcc() -> str:

@@ -184,6 +184,7 @@ def test_port_imports_no_jax():
         "import emri_frequencydomainwaveforms_tpu_torch.parallel.mesh\n"
         "import emri_frequencydomainwaveforms_tpu_torch.graft_entry\n"
         "import emri_frequencydomainwaveforms_tpu_torch.ops.row_ops\n"
+        "import emri_frequencydomainwaveforms_tpu_torch.ops.dp5_inspiral\n"
         "import emri_frequencydomainwaveforms_tpu_torch.ops.cuda_build\n"
         "import emri_frequencydomainwaveforms_tpu_torch.testing.pe_mesh\n"
         "import emri_frequencydomainwaveforms_tpu_torch.testing.mesh_cases\n"
